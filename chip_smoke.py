@@ -1,0 +1,474 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure, so the script exits non-zero and never
+prints its last line):
+
+1. torch/CUDA versions and the card's name and power limit; no card, no
+   run (there is no CPU fallback).
+2. Build the CUDA kernels from ``wasm_pathtracer_tpu_torch/csrc`` with
+   nvcc.
+3. K1, the nearest-hit kernel, against its plain PyTorch version on the
+   card: four scenes, 16,384 + 37 rays each (camera rays and random
+   rays).  Hits agree on > 99.9% of rays, t agrees within rtol 1e-5 /
+   atol 1e-4 where both hit, shape ids agree on > 99.5% (the tolerances
+   of the JAX package's own kernel tests; the kernel contracts to FMA,
+   the plain version does not).  Kernel and plain device times at
+   16,384 rays on the museum (``torch.profiler`` kernel durations).
+4. K2, the any-hit shadow kernel, on shadow rays from those rays' hits
+   toward random light points.  From origins within the scenes'
+   geometry, verdicts agree on > 99.9% of rays.  From far origins
+   (grazing ground hits 50 to ~10^5 units away) every verdict that
+   differs must be a float32 rounding tie: the plain version's own
+   verdict flips when the origin moves by at most 16 ulp (and >= 98%
+   agree).
+5. The main path at full width: the museum, 512x512, NEE, 8 bounces,
+   S = 2,621,440 paths through ``render_queue`` with 16,384 lanes.
+   Every sample is counted once, the radiance is finite, and each
+   kernel's launch count equals the loop's iteration count.
+6. GPU against CPU: pcg3d streams bit-identical; then end to end, the
+   museum at 32x32, 1 spp, 256 lanes, through the kernels on the card
+   and the plain versions on the CPU: per-path radiance agrees (rtol
+   1e-3, atol 2e-3) on >= 99% of paths.
+7. The CLI renders the museum at 512x512 and writes a non-black PNG.
+
+The last two lines of standard output are a JSON record of each kernel
+(launches in the main-path run, max |kernel - plain|, kernel and plain
+ms) and a JSON status line.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import struct
+import subprocess
+import sys
+import tempfile
+import time
+import zlib
+
+import numpy as np
+
+HEADLINE = dict(width=512, height=512, max_bounces=8, S=2_621_440, B=16_384)
+SEED = 0xBABABEBE
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, n):
+    """Mean device time of ``fn`` over ``n`` calls: the summed durations
+    of the CUDA kernels it launched, from ``torch.profiler``.  (Events
+    around the calls would also count the gaps in which the device waits
+    for the host to launch the next kernel: a wrapper's Python takes
+    longer than these kernels run.)  Raises when the profiler records no
+    device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("torch.profiler recorded no CUDA kernel time")
+    return us / 1e3 / n
+
+
+# ---------------------------------------------------------------------------
+# scenes and rays
+# ---------------------------------------------------------------------------
+
+def all_families_scene(device):
+    """Every primitive family, sizes off any power of two, and emissive
+    shapes in the sphere, square and triangle families."""
+    from wasm_pathtracer_tpu_torch.models.scene import Material, SceneBuilder
+    b = SceneBuilder(background=(0.1, 0.1, 0.1))
+    r = np.random.default_rng(13)
+    for _ in range(3):
+        b.add_sphere(r.uniform(-2, 2, 3), 0.5, Material.diffuse(0.6, 0.4, 0.3))
+    b.add_sphere((0.0, 2.5, 1.0), 0.4, Material.emissive(5.0, 5.0, 5.0))
+    b.add_plane((0, -2, 0), (0, 1, 0), Material.diffuse(0.5, 0.5, 0.5))
+    for _ in range(2):
+        b.add_torus(r.uniform(-2, 2, 3), 0.8, 0.25, Material.diffuse(0.7, 0.7, 0.2))
+    lo = r.uniform(-2, 0, (2, 3))
+    hi = lo + r.uniform(0.2, 1.0, (2, 3))
+    for j in range(2):
+        b.add_aarect(lo[j][0], hi[j][0], lo[j][1], hi[j][1], lo[j][2], hi[j][2],
+                     Material.diffuse(0.2, 0.6, 0.7))
+    b.add_square((0.5, 3.0, 0.5), 1.5, Material.emissive(6.0, 6.0, 6.0))
+    tri = np.random.default_rng(4)
+    c = np.concatenate([tri.uniform(-2.5, 2.5, (5, 1, 2)),
+                        tri.uniform(0.0, 5.0, (5, 1, 1))], axis=-1)
+    b.add_triangles((c + tri.uniform(0.0, 0.5, (5, 3, 3))).astype(np.float32),
+                    Material.emissive(4.0, 4.0, 4.0))
+    return b.build(device)
+
+
+def smoke_scenes(device):
+    from wasm_pathtracer_tpu_torch.models import scenes
+    return {"museum": scenes.museum(device),
+            "sphere_plane": scenes.sphere_plane(device),
+            "whitted": scenes.whitted(device=device),
+            "all_families": all_families_scene(device)}
+
+
+def test_rays(n, seed, device):
+    """Half primary rays of the museum camera at random pixels, half
+    random origins in [-4, 4]^3 with random directions."""
+    import torch
+    from wasm_pathtracer_tpu_torch.models.camera import initial_camera, primary_rays
+    r = np.random.default_rng(seed)
+    n_cam = n // 2
+    px = torch.as_tensor(r.integers(0, 512, n_cam), device=device)
+    py = torch.as_tensor(r.integers(0, 512, n_cam), device=device)
+    jx = torch.as_tensor(r.random(n_cam, dtype=np.float32), device=device)
+    jy = torch.as_tensor(r.random(n_cam, dtype=np.float32), device=device)
+    o_c, d_c = primary_rays(initial_camera(0, device), px, py, jx, jy, 512, 512)
+    o_r = r.uniform(-4, 4, (n - n_cam, 3)).astype(np.float32)
+    d_r = r.normal(size=(n - n_cam, 3)).astype(np.float32)
+    d_r /= np.linalg.norm(d_r, axis=-1, keepdims=True)
+    o = torch.cat([o_c, torch.as_tensor(o_r, device=device)]).contiguous()
+    d = torch.cat([d_c, torch.as_tensor(d_r, device=device)]).contiguous()
+    return o, d
+
+
+def shadow_rays(prep, scene, o, d, seed):
+    """Shadow rays from the hits of (o, d) toward random points of random
+    lights, with the light's kernel code as the exclusion (-1 on every
+    tenth ray); rays that miss start from their own origin.  Returns the
+    rays and a mask of those whose origin is a hit farther than 50 units
+    (beyond the scenes' geometry: grazing hits on a ground plane, up to
+    ~10^5 units away)."""
+    import torch
+    from wasm_pathtracer_tpu_torch.ops import intersect as isx
+    from wasm_pathtracer_tpu_torch.ops import trace
+    dev = o.device
+    t, _, hit, _ = trace.trace_scene(prep, scene, o, d)
+    p = torch.where(hit[:, None], o + d * torch.where(hit, t, 0.0)[:, None], o)
+    r = np.random.default_rng(seed)
+    R = o.shape[0]
+    lights = scene.light_shape.cpu().numpy()
+    lsid = torch.as_tensor(r.choice(lights, R).astype(np.int64), device=dev)
+    rows = scene.params[lsid]
+    u = torch.as_tensor(r.random((3, R), dtype=np.float32), device=dev)
+    tri = scene.ptype[lsid] == 2
+    p_tri, _ = isx.triangle_pick_random(rows[:, 0:3], rows[:, 3:6], rows[:, 6:9],
+                                        u[0], u[1], u[2])
+    p_l = torch.where(tri[:, None], p_tri, rows[:, 0:3])
+    to_l = p_l - p
+    dist = torch.linalg.norm(to_l, dim=-1)
+    dd = (to_l / torch.clamp(dist, min=1e-30)[:, None]).contiguous()
+    oo = (p + dd * 2e-4).contiguous()
+    excl = prep.code_of[lsid].to(torch.int32)
+    excl[::10] = -1
+    return oo, dd, dist.contiguous(), excl.contiguous(), hit & (t >= 50.0)
+
+
+def rounding_ties(tables, o, d, dist, excl, max_ulps=16, n_jitter=2048, seed=0):
+    """(R,) bool: shadow rays whose verdict float32 does not settle.  The
+    plain version is evaluated with each origin coordinate moved by up
+    to ``max_ulps`` units in the last place (``n_jitter`` random moves);
+    a ray is a tie when both verdicts occur.  The kernel (the Pallas
+    kernel's formulas, FMA-contracted) and the plain version (the dense
+    formulas, separately rounded) compute t = (n.v0 - n.o) / (n.d) and
+    o + d t with different roundings; from an origin 10^4 units out the
+    cancellation leaves errors of several ulp of the origin, more at
+    grazing angles."""
+    import torch
+    from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
+    R = o.shape[0]
+    if R == 0:
+        return torch.zeros(0, dtype=torch.bool, device=o.device)
+    g = torch.Generator(device=o.device).manual_seed(seed)
+    a = o.abs()
+    ulp = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    k = torch.randint(-max_ulps, max_ulps + 1, (n_jitter, R, 3), generator=g,
+                      device=o.device)
+    oj = (o[None] + k * ulp[None]).reshape(-1, 3)
+
+    def rep(x):
+        return x[None].expand(n_jitter, *x.shape).reshape(-1, *x.shape[1:])
+
+    v = sk.fused_occluded_reference(tables, oj, rep(d), rep(dist),
+                                    rep(excl)).view(n_jitter, R)
+    return v.any(0) & ~v.all(0)
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_kernel_k1(device, record):
+    import torch
+    from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
+    from wasm_pathtracer_tpu_torch.ops import trace
+    worst = 0.0
+    for i, (name, scene) in enumerate(smoke_scenes(device).items()):
+        prep = trace.prepare(scene)
+        tables = prep.tables
+        o, d = test_rays(16_384 + 37, 100 + i, device)
+        t_k, f_k, s_k = sk.fused_nearest(tables, o, d)
+        t_p, f_p, s_p = sk.fused_nearest_reference(tables, o, d)
+        torch.cuda.synchronize()
+        hit_k, hit_p = f_k >= 0, f_p >= 0
+        both = hit_k & hit_p
+        hit_agree = (hit_k == hit_p).float().mean().item()
+        err = (t_k[both] - t_p[both]).abs().max().item() if both.any() else 0.0
+        t_ok = torch.allclose(t_k[both], t_p[both], rtol=1e-5, atol=1e-4)
+        sid_agree = ((f_k == f_p) & (s_k == s_p))[both].float().mean().item()
+        log(f"K1 {name}: hit agreement {hit_agree:.6f}, max |dt| {err:.3g}, "
+            f"shape-id agreement {sid_agree:.6f}, hit rate "
+            f"{hit_p.float().mean().item():.3f}")
+        if not (hit_agree > 0.999 and t_ok and sid_agree > 0.995):
+            raise AssertionError(f"K1 disagrees with its plain version on {name}")
+        worst = max(worst, err)
+        if name == "museum":
+            o16, d16 = o[:16_384].contiguous(), d[:16_384].contiguous()
+            ms = cuda_ms(lambda: sk.fused_nearest(tables, o16, d16), 50)
+            plain_ms = cuda_ms(lambda: sk.fused_nearest_reference(tables, o16, d16), 5)
+    log(f"K1 museum B=16384: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    record["fused_nearest"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+
+
+def phase_kernel_k2(device, record):
+    """Near origins (within the scenes' geometry): verdicts agree on
+    > 99.9% of rays.  Far origins (grazing hits > 50 units away, where a
+    float32 ulp of the origin is 4e-6 to 8e-3): every verdict that
+    differs is a rounding tie (``rounding_ties``), and >= 98% agree.
+    Ties are common there (the origin sits on the ground plane within an
+    ulp), so the share of ties among far rays is printed beside them."""
+    import torch
+    from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
+    from wasm_pathtracer_tpu_torch.ops import trace
+    worst = 0.0
+    for i, (name, scene) in enumerate(smoke_scenes(device).items()):
+        prep = trace.prepare(scene)
+        tables = prep.tables
+        o, d = test_rays(16_384 + 37, 200 + i, device)
+        so, sd, dist, excl, far = shadow_rays(prep, scene, o, d, 300 + i)
+        occ_k = sk.fused_occluded(tables, so, sd, dist, excl)
+        occ_p = sk.fused_occluded_reference(tables, so, sd, dist, excl)
+        torch.cuda.synchronize()
+        diff = occ_k != occ_p
+        n_near, n_far = int((~far).sum()), int(far.sum())
+        d_near, d_far = int((diff & ~far).sum()), int((diff & far).sum())
+        agree_near = 1.0 - d_near / max(n_near, 1)
+        agree_far = 1.0 - d_far / max(n_far, 1)
+        idx = torch.nonzero(diff & far)[:, 0]
+        ties = rounding_ties(tables, *(x[idx] for x in (so, sd, dist, excl)))
+        # how common ties are among far rays in general (256 of them)
+        sample = torch.nonzero(far)[:256, 0]
+        base = rounding_ties(tables, *(x[sample] for x in (so, sd, dist, excl)))
+        log(f"K2 {name}: near origins {d_near} of {n_near} differ (agreement "
+            f"{agree_near:.6f}); far origins {d_far} of {n_far} differ (agreement "
+            f"{agree_far:.6f}), {int(ties.sum())} of them rounding ties, ties among "
+            f"{sample.numel()} far rays {base.float().mean().item() if sample.numel() else 0.0:.4f}; "
+            f"occluded rate {occ_p.float().mean().item():.3f}")
+        for j, tie in list(zip(idx.tolist(), ties.tolist()))[:8]:
+            log(f"  differs: |origin| {so[j].abs().max().item():.6g}, light at "
+                f"{dist[j].item():.6g}, excl {int(excl[j])}, kernel "
+                f"{bool(occ_k[j])}, tie {tie}")
+        if not (agree_near > 0.999 and agree_far >= 0.98 and bool(ties.all())):
+            raise AssertionError(f"K2 disagrees with its plain version on {name}")
+        worst = max(worst, diff.float().max().item())
+        if name == "museum":
+            args = [x[:16_384].contiguous() for x in (so, sd, dist, excl)]
+            ms = cuda_ms(lambda: sk.fused_occluded(tables, *args), 50)
+            plain_ms = cuda_ms(lambda: sk.fused_occluded_reference(tables, *args), 5)
+    log(f"K2 museum B=16384: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    record["fused_occluded"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+
+
+def headline_queue(device, S):
+    from wasm_pathtracer_tpu_torch.ops import adaptive
+    h = HEADLINE
+    px, py = adaptive.random_pixels(S, 1, 0, 0, h["width"], h["height"], device)
+    return (py * h["width"] + px).contiguous()
+
+
+def phase_main_path(device, record):
+    import torch
+    from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+    from wasm_pathtracer_tpu_torch.models import scenes
+    from wasm_pathtracer_tpu_torch.models.camera import initial_camera
+    from wasm_pathtracer_tpu_torch.ops import integrator, scene_kernels as sk, trace
+    h = HEADLINE
+    scene = scenes.museum(device)
+    prep = trace.prepare(scene)
+    cam = initial_camera(0, device)
+    st = RenderSettings(render_type=RenderType.NORMAL_NEE,
+                        max_bounces=h["max_bounces"])
+    # warm-up at a fraction of the queue (allocator, library load)
+    integrator.render_queue(prep, scene, st, cam, headline_queue(device, 4 * h["B"]),
+                            h["width"], h["height"], 1, h["B"])
+    pix = headline_queue(device, h["S"])
+    torch.cuda.synchronize()
+
+    sk.fused_nearest.launches = 0
+    sk.fused_occluded.launches = 0
+    t0 = time.perf_counter()
+    acc, cnt, cost, iters = integrator.render_queue(
+        prep, scene, st, cam, pix, h["width"], h["height"], 2, h["B"],
+        return_iters=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"fused_nearest": sk.fused_nearest.launches,
+                "fused_occluded": sk.fused_occluded.launches}
+
+    total = int(cnt.sum())
+    finite = bool(torch.isfinite(acc).all())
+    pps = h["S"] / dt
+    log(f"main path: museum {h['width']}x{h['height']} NEE {h['max_bounces']} "
+        f"bounces, S={h['S']} B={h['B']}: {dt:.3f} s, {pps:.1f} paths/s, "
+        f"{iters} iterations, launches {launches}, samples {total}, "
+        f"mean radiance {acc.sum(0).div(h['S']).tolist()}, "
+        f"prim tests/path {int(cost.sum()) / h['S']:.1f}")
+    if total != h["S"]:
+        raise AssertionError(f"counts sum to {total}, expected {h['S']}")
+    if not finite:
+        raise AssertionError("non-finite radiance")
+    for name, n in launches.items():
+        if n != iters:
+            raise AssertionError(f"{name} launched {n} times in {iters} iterations")
+        record[name]["launches"] = n
+    record["main_path"] = dict(paths_per_sec=pps, seconds=dt, iterations=iters)
+
+
+def phase_gpu_vs_cpu(device):
+    import torch
+    from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+    from wasm_pathtracer_tpu_torch.models import scenes
+    from wasm_pathtracer_tpu_torch.models.camera import initial_camera
+    from wasm_pathtracer_tpu_torch.ops import integrator, trace
+    from wasm_pathtracer_tpu_torch.utils import rng
+    # the pcg3d streams are bit-exact across devices (int64 wraparound)
+    r = np.random.default_rng(5)
+    args = [r.integers(0, 2**32, 1 << 16, dtype=np.int64) for _ in range(3)]
+    for a in args:
+        a[:2] = (0, 2**32 - 1)
+    u_g = rng.uniform3(*(torch.as_tensor(a, device=device) for a in args))
+    u_c = rng.uniform3(*(torch.as_tensor(a) for a in args))
+    if not all(torch.equal(g.cpu(), c) for g, c in zip(u_g, u_c)):
+        raise AssertionError("pcg3d streams differ between GPU and CPU")
+    log("pcg3d: GPU and CPU streams bit-identical on 65,536 random triples")
+
+    W = H = 32
+    st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=8)
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        scene = scenes.museum(dev)
+        pix = torch.arange(W * H, device=dev)
+        acc, cnt, cost = integrator.render_queue(
+            trace.prepare(scene), scene, st, initial_camera(0, dev), pix, W, H,
+            SEED, 256)
+        out[dev.type] = (acc.cpu().numpy(), cnt.cpu().numpy(), int(cost.sum()))
+    (a_g, c_g, k_g), (a_c, c_c, k_c) = out["cuda"], out["cpu"]
+    close = np.isclose(a_g, a_c, rtol=1e-3, atol=2e-3).all(-1).mean()
+    log(f"GPU vs CPU museum {W}x{H} 1 spp: per-path agreement {close:.4f}, "
+        f"mean {a_g.mean(0).tolist()} vs {a_c.mean(0).tolist()}, "
+        f"prim tests {k_g} vs {k_c}")
+    if not (np.array_equal(c_g, c_c) and close >= 0.99):
+        raise AssertionError("GPU and CPU renders disagree")
+
+
+def png_pixels(path) -> np.ndarray:
+    """Decode an 8-bit RGB PNG as written by ``utils.png`` (filter 0)."""
+    data = open(path, "rb").read()
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def phase_cli():
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "museum.png")
+        cmd = [sys.executable, "-m", "wasm_pathtracer_tpu_torch.runtime.cli",
+               "--scene", "0", "--width", "512", "--height", "512",
+               "--ticks", "65536", "--out", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI failed ({proc.returncode}): {proc.stderr[-2000:]}")
+        img = png_pixels(out)
+        log(f"CLI: {img.shape} PNG in {time.perf_counter() - t0:.1f} s, "
+            f"mean {img.mean():.2f}, non-zero pixels {(img.max(-1) > 0).mean():.3f}")
+        if img.shape != (512, 512, 3) or img.max() == 0:
+            raise AssertionError("CLI wrote a black or misshapen PNG")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    try:
+        from wasm_pathtracer_tpu_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: the port package is not importable ({e}); run "
+              "from the root of a checkout", file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
+    log(card)
+
+    t0 = time.perf_counter()
+    lib = _build.build()
+    log(f"built {lib} in {time.perf_counter() - t0:.1f} s")
+    log((lib.parent / "ptxas.txt").read_text().strip())
+
+    record = {}
+    phase_kernel_k1(device, record)
+    phase_kernel_k2(device, record)
+    phase_main_path(device, record)
+    phase_gpu_vs_cpu(device)
+    phase_cli()
+
+    sources = {"fused_nearest": ("wasm_pathtracer_tpu/ops/scene_pallas.py:534",
+                                 "wasm_pathtracer_tpu_torch/csrc/scene_kernels.cu"),
+               "fused_occluded": ("wasm_pathtracer_tpu/ops/scene_pallas.py:447",
+                                  "wasm_pathtracer_tpu_torch/csrc/scene_kernels.cu")}
+    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
+                    launches=record[name]["launches"],
+                    max_abs_err=record[name]["max_abs_err"],
+                    ms=record[name]["ms"], plain_ms=record[name]["plain_ms"])
+               for name, (rep, src) in sources.items()]
+    log(json.dumps({"main_path": record["main_path"]}))
+    log(card_line())
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
