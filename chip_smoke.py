@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's render paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [phase ...]
 
-Phases (each raises on failure, so the script exits non-zero and never
-prints its last line):
+With no arguments every phase runs; naming phases (see ``PHASES``) runs
+only those, and then the closing JSON lines are not printed.  Phases
+(each raises on failure, so the script exits non-zero and never prints
+its last line):
 
 1. torch/CUDA versions and the card's name and power limit; no card, no
    run (there is no CPU fallback).
@@ -33,10 +35,45 @@ prints its last line):
    and the plain versions on the CPU: per-path radiance agrees (rtol
    1e-3, atol 2e-3) on >= 99% of paths.
 7. The CLI renders the museum at 512x512 and writes a non-black PNG.
+8. K6 and K3, the cluster selects, against their plain versions on three
+   cluster sets: mesh70k (C = 550, plane remainder), a 300k-triangle
+   cloud (C = 2,344, plane remainder) and the museum clustered with its
+   lights left dense (mixed tori and aarects, 109-shape remainder; K6
+   only).  16,384 + 37 camera and random rays, every other one with the
+   lex cursor a first select pass gives it.  Entries agree in finiteness
+   on > 99.9% of rays and within rtol 1e-5 / atol 1e-5; a cluster id may
+   differ only where the two clusters' entries lie within that
+   tolerance of each other (a rounding tie).  K3's dense hit follows the
+   K1 rule.
+9. K4 and K5, the probes, on the same sets and the clusters the select
+   chose: hits agree on > 99.9% of rays, t within rtol 1e-5 / atol 1e-5,
+   and a shape id may differ only where the two slots' distances tie
+   within that tolerance.  Device times of K3-K6 and their plain
+   versions at 16,384 mesh70k rays.
+10. The mesh path at full width: mesh70k (70,314 triangles and a plane),
+   512x512, NEE, 8 bounces, S = 524,288 paths through
+   ``render_queue_flat`` with 16,384 lanes.  Every sample counted once,
+   finite radiance, K3 and K4 launched once per iteration, K1, K2, K5
+   and K6 never.
+11. Mesh GPU against CPU: a 1,106-triangle mesh at 32x32, 1 spp, 256
+   lanes, through the flat loop on the card and the plain versions on
+   the CPU: sample counts equal, per-path radiance agrees (rtol 1e-3,
+   atol 2e-3) on >= 99% of paths.
+12. Lockstep against flat on the card: mesh70k at 64x64, 1 spp, through
+   ``render_queue`` with the cluster prep (K1 and K5 in the lockstep
+   cluster trace) and through ``render_queue_flat``: counts equal,
+   >= 99% of paths agree, K5 launched.
+13. The K6 path: the museum with its lights dense, 64x64, 1 spp, through
+   ``render_queue_flat`` (K6 beside K1, then K4) against ``render_queue``
+   without clusters: counts equal, >= 99% of paths agree, K6, K1 and K4
+   launched once per iteration.
+14. The CLI renders scene 5 (the 100k-triangle cloud) at 512x512 through
+   the session's flat wavefront and writes a non-black PNG.
 
-The last two lines of standard output are a JSON record of each kernel
-(launches in the main-path run, max |kernel - plain|, kernel and plain
-ms) and a JSON status line.
+The last lines of standard output are a JSON record of the museum and
+mesh paths, the card's name and power limit, a JSON record of each
+kernel (launches in the run of the path it serves, max |kernel - plain|,
+kernel and plain ms) and a JSON status line.
 """
 
 from __future__ import annotations
@@ -89,6 +126,56 @@ def cuda_ms(fn, n):
     return us / 1e3 / n
 
 
+# (wrapper, TPU kernel it replaces, CUDA source), K1 to K6
+KERNELS = (
+    ("fused_nearest", "wasm_pathtracer_tpu/ops/scene_pallas.py:534",
+     "wasm_pathtracer_tpu_torch/csrc/scene_kernels.cu"),
+    ("fused_occluded", "wasm_pathtracer_tpu/ops/scene_pallas.py:447",
+     "wasm_pathtracer_tpu_torch/csrc/scene_kernels.cu"),
+    ("select_scan", "wasm_pathtracer_tpu/ops/probe_pallas.py:602",
+     "wasm_pathtracer_tpu_torch/csrc/probe_kernels.cu"),
+    ("probe_pair", "wasm_pathtracer_tpu/ops/probe_pallas.py:860",
+     "wasm_pathtracer_tpu_torch/csrc/probe_kernels.cu"),
+    ("probe_min", "wasm_pathtracer_tpu/ops/probe_pallas.py:884",
+     "wasm_pathtracer_tpu_torch/csrc/probe_kernels.cu"),
+    ("select_blocks", "wasm_pathtracer_tpu/ops/probe_pallas.py:398",
+     "wasm_pathtracer_tpu_torch/csrc/probe_kernels.cu"),
+)
+
+
+def wrappers():
+    """Kernel wrapper of each name in ``KERNELS``."""
+    from wasm_pathtracer_tpu_torch.ops import probe_kernels as pk
+    from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
+    return {"fused_nearest": sk.fused_nearest, "fused_occluded": sk.fused_occluded,
+            "select_scan": pk.select_scan, "probe_pair": pk.probe_pair,
+            "probe_min": pk.probe_min, "select_blocks": pk.select_blocks}
+
+
+def reset_counts():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def expect_launches(launches, iters, once_per_iteration=(), at_least_once=()):
+    """Each kernel of ``once_per_iteration`` launched ``iters`` times, each
+    of ``at_least_once`` some times, every other kernel never."""
+    for name, n in launches.items():
+        if name in once_per_iteration:
+            ok = n == iters
+        elif name in at_least_once:
+            ok = n > 0
+        else:
+            ok = n == 0
+        if not ok:
+            raise AssertionError(f"{name} launched {n} times in {iters} "
+                                 f"iterations (all launches: {launches})")
+
+
 # ---------------------------------------------------------------------------
 # scenes and rays
 # ---------------------------------------------------------------------------
@@ -127,9 +214,10 @@ def smoke_scenes(device):
             "all_families": all_families_scene(device)}
 
 
-def test_rays(n, seed, device):
-    """Half primary rays of the museum camera at random pixels, half
-    random origins in [-4, 4]^3 with random directions."""
+def test_rays(n, seed, device, camera=None):
+    """Half primary rays of ``camera`` (the museum's by default) at random
+    pixels of a 512x512 frame, half random origins in [-4, 4]^3 with
+    random directions."""
     import torch
     from wasm_pathtracer_tpu_torch.models.camera import initial_camera, primary_rays
     r = np.random.default_rng(seed)
@@ -138,7 +226,8 @@ def test_rays(n, seed, device):
     py = torch.as_tensor(r.integers(0, 512, n_cam), device=device)
     jx = torch.as_tensor(r.random(n_cam, dtype=np.float32), device=device)
     jy = torch.as_tensor(r.random(n_cam, dtype=np.float32), device=device)
-    o_c, d_c = primary_rays(initial_camera(0, device), px, py, jx, jy, 512, 512)
+    o_c, d_c = primary_rays(camera or initial_camera(0, device), px, py, jx, jy,
+                            512, 512)
     o_r = r.uniform(-4, 4, (n - n_cam, 3)).astype(np.float32)
     d_r = r.normal(size=(n - n_cam, 3)).astype(np.float32)
     d_r /= np.linalg.norm(d_r, axis=-1, keepdims=True)
@@ -242,7 +331,8 @@ def phase_kernel_k1(device, record):
             ms = cuda_ms(lambda: sk.fused_nearest(tables, o16, d16), 50)
             plain_ms = cuda_ms(lambda: sk.fused_nearest_reference(tables, o16, d16), 5)
     log(f"K1 museum B=16384: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    record["fused_nearest"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+    record.setdefault("fused_nearest", {}).update(max_abs_err=worst, ms=ms,
+                                                  plain_ms=plain_ms)
 
 
 def phase_kernel_k2(device, record):
@@ -291,7 +381,8 @@ def phase_kernel_k2(device, record):
             ms = cuda_ms(lambda: sk.fused_occluded(tables, *args), 50)
             plain_ms = cuda_ms(lambda: sk.fused_occluded_reference(tables, *args), 5)
     log(f"K2 museum B=16384: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    record["fused_occluded"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+    record.setdefault("fused_occluded", {}).update(max_abs_err=worst, ms=ms,
+                                                   plain_ms=plain_ms)
 
 
 def headline_queue(device, S):
@@ -319,16 +410,15 @@ def phase_main_path(device, record):
     pix = headline_queue(device, h["S"])
     torch.cuda.synchronize()
 
-    sk.fused_nearest.launches = 0
-    sk.fused_occluded.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     acc, cnt, cost, iters = integrator.render_queue(
         prep, scene, st, cam, pix, h["width"], h["height"], 2, h["B"],
         return_iters=True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"fused_nearest": sk.fused_nearest.launches,
-                "fused_occluded": sk.fused_occluded.launches}
+    launches = read_counts()
+    expect_launches(launches, iters, ("fused_nearest", "fused_occluded"))
 
     total = int(cnt.sum())
     finite = bool(torch.isfinite(acc).all())
@@ -342,14 +432,12 @@ def phase_main_path(device, record):
         raise AssertionError(f"counts sum to {total}, expected {h['S']}")
     if not finite:
         raise AssertionError("non-finite radiance")
-    for name, n in launches.items():
-        if n != iters:
-            raise AssertionError(f"{name} launched {n} times in {iters} iterations")
-        record[name]["launches"] = n
+    for name in ("fused_nearest", "fused_occluded"):
+        record.setdefault(name, {})["launches"] = launches[name]
     record["main_path"] = dict(paths_per_sec=pps, seconds=dt, iterations=iters)
 
 
-def phase_gpu_vs_cpu(device):
+def phase_gpu_vs_cpu(device, record):
     import torch
     from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
     from wasm_pathtracer_tpu_torch.models import scenes
@@ -402,11 +490,13 @@ def png_pixels(path) -> np.ndarray:
     return raw[:, 1:].reshape(h, w, 3)
 
 
-def phase_cli():
+def cli_render(scene_id: int):
+    """Render ``scene_id`` at 512x512 through the CLI in a process of its
+    own and check the PNG is not black."""
     with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "museum.png")
+        out = os.path.join(tmp, f"scene{scene_id}.png")
         cmd = [sys.executable, "-m", "wasm_pathtracer_tpu_torch.runtime.cli",
-               "--scene", "0", "--width", "512", "--height", "512",
+               "--scene", str(scene_id), "--width", "512", "--height", "512",
                "--ticks", "65536", "--out", out]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
@@ -414,14 +504,341 @@ def phase_cli():
         if proc.returncode != 0:
             raise AssertionError(f"CLI failed ({proc.returncode}): {proc.stderr[-2000:]}")
         img = png_pixels(out)
-        log(f"CLI: {img.shape} PNG in {time.perf_counter() - t0:.1f} s, "
+        log(f"CLI scene {scene_id}: {img.shape} PNG in {time.perf_counter() - t0:.1f} s, "
             f"mean {img.mean():.2f}, non-zero pixels {(img.max(-1) > 0).mean():.3f}")
         if img.shape != (512, 512, 3) or img.max() == 0:
             raise AssertionError("CLI wrote a black or misshapen PNG")
 
 
-def main() -> int:
+def phase_cli(device, record):
+    cli_render(0)
+
+
+def phase_cli_cloud(device, record):
+    cli_render(5)
+
+
+# ---------------------------------------------------------------------------
+# the mesh path
+# ---------------------------------------------------------------------------
+
+MESH = dict(width=512, height=512, max_bounces=8, S=524_288, B=16_384)
+# the JAX bench's mesh70k camera (bench.py)
+MESH_CAMERA = dict(location=(0.0, 1.0, -6.0), rot_x=0.1, rot_y=0.0)
+
+
+def mesh70k(device):
+    """The JAX bench's mesh70k scene (70,312 mesh triangles, two light
+    triangles, a plane) and its prep with the default cluster structure:
+    550 clusters of 128, the plane left dense."""
+    from wasm_pathtracer_tpu_torch.models import scenes
+    from wasm_pathtracer_tpu_torch.ops import bvh, trace
+    scene = scenes.mesh_scene(scenes.surface_mesh(188), device)
+    return scene, bvh.attach_clusters(trace.prepare(scene), scene)
+
+
+def museum_clustered(device):
+    """The museum with every finite family clustered except its 108 light
+    triangles: tori and aarects in one mixed cluster, 109 shapes dense."""
+    from wasm_pathtracer_tpu_torch.models import scenes
+    from wasm_pathtracer_tpu_torch.ops import bvh, trace
+    scene = scenes.museum(device)
+    return scene, bvh.attach_clusters(trace.prepare(scene), scene, min_count=1,
+                                      exclude_lights=True)
+
+
+def mesh_camera(device):
+    from wasm_pathtracer_tpu_torch.models.camera import Camera
+    return Camera.create(**MESH_CAMERA, device=device)
+
+
+def check_select(cs, o, d, out_k, out_p, what):
+    """Hold a select's (e_cur, c_cur, e_b, c_b, e_after) against its plain
+    version's.  Returns (max |entry difference|, ids that differ on a
+    rounding tie)."""
     import torch
+    from wasm_pathtracer_tpu_torch.ops import cluster as cl
+    worst = 0.0
+    for ek, ep in zip(out_k[0::2], out_p[0::2]):
+        fin_k, fin_p = torch.isfinite(ek), torch.isfinite(ep)
+        both = fin_k & fin_p
+        agree = (fin_k == fin_p).float().mean().item()
+        if not (agree > 0.999 and torch.allclose(ek[both], ep[both], rtol=1e-5,
+                                                 atol=1e-5)):
+            raise AssertionError(f"{what}: entries disagree (finiteness agreement "
+                                 f"{agree:.6f})")
+        if both.any():
+            worst = max(worst, (ek[both] - ep[both]).abs().max().item())
+    ties = 0
+    for ck, cp, ek, ep in zip(out_k[1:4:2], out_p[1:4:2], out_k[0:4:2], out_p[0:4:2]):
+        idx = torch.nonzero(torch.isfinite(ek) & torch.isfinite(ep) & (ck != cp))[:, 0]
+        if idx.numel():
+            ent = cl._rays_vs_boxes(o[idx], d[idx], cs.lo, cs.hi)
+            rows = torch.arange(idx.numel(), device=o.device)
+            a, b = ent[rows, ck[idx].long()], ent[rows, cp[idx].long()]
+            if not torch.isclose(a, b, rtol=1e-5, atol=1e-5).all():
+                raise AssertionError(f"{what}: cluster ids differ off a tie")
+            ties += idx.numel()
+    return worst, ties
+
+
+def check_probe(cs, o, d, cidx, out_k, out_p, what):
+    """Hold one probe round's (t, sid) against its plain version's.
+    Returns (max |dt|, ids that differ on a rounding tie, hit rate)."""
+    import torch
+    from wasm_pathtracer_tpu_torch.ops import cluster as cl
+    (t_k, s_k), (t_p, s_p) = out_k, out_p
+    fin_k, fin_p = torch.isfinite(t_k), torch.isfinite(t_p)
+    both = fin_k & fin_p
+    agree = (fin_k == fin_p).float().mean().item()
+    if not (agree > 0.999 and torch.allclose(t_k[both], t_p[both], rtol=1e-5, atol=1e-5)
+            and bool((s_k[~fin_k] == -1).all())):
+        raise AssertionError(f"{what}: distances disagree (hit agreement {agree:.6f})")
+    worst = (t_k[both] - t_p[both]).abs().max().item() if both.any() else 0.0
+    idx = torch.nonzero(both & (s_k != s_p))[:, 0]
+    if idx.numel():
+        c = cidx[idx].long().clamp(0, cs.num_clusters - 1)
+        t_slots = cl._block_test(o[idx], d[idx], cs.blocks[c], cs.btype[c], cs.families)
+        grid = cs.slot_to_sid.view(cs.num_clusters, cs.group)[c]
+        jk = (grid == s_k[idx, None]).int().argmax(1)
+        jp = (grid == s_p[idx, None]).int().argmax(1)
+        rows = torch.arange(idx.numel(), device=o.device)
+        if not torch.isclose(t_slots[rows, jk], t_slots[rows, jp], rtol=1e-5,
+                             atol=1e-5).all():
+            raise AssertionError(f"{what}: shape ids differ off a tie")
+    return worst, idx.numel(), fin_p.float().mean().item()
+
+
+def phase_cluster_kernels(device, record):
+    """K3-K6 against their plain versions on three cluster sets."""
+    import torch
+    from wasm_pathtracer_tpu_torch.models import scenes
+    from wasm_pathtracer_tpu_torch.models.camera import initial_camera
+    from wasm_pathtracer_tpu_torch.ops import bvh, trace
+    from wasm_pathtracer_tpu_torch.ops import probe_kernels as pk
+    big = scenes.cloud(300_000, device=device)
+    sets = {"mesh70k": (mesh70k(device)[1], mesh_camera(device)),
+            "cloud300k": (bvh.attach_clusters(trace.prepare(big), big),
+                          initial_camera(5, device)),
+            "museum_clustered": (museum_clustered(device)[1], initial_camera(0, device))}
+    errs = {name: 0.0 for name in ("select_scan", "probe_pair", "probe_min",
+                                   "select_blocks")}
+    for i, (name, (prep, cam)) in enumerate(sets.items()):
+        cs = prep.cluster
+        o, d = test_rays(16_384 + 37, 400 + i, device, cam)
+        R = o.shape[0]
+        fresh_e = torch.full((R,), -torch.inf, device=device)
+        fresh_c = torch.full((R,), -1, dtype=torch.int32, device=device)
+        e0, c0 = pk.select_blocks_reference(cs, o, d, fresh_e, fresh_c)[:2]
+        # every other ray continues after its first candidate
+        cont = (torch.arange(R, device=device) % 2 == 0) & torch.isfinite(e0)
+        skip_e = torch.where(cont, e0, -torch.inf).contiguous()
+        skip_c = torch.where(cont, c0, -1).to(torch.int32).contiguous()
+        sel_p = pk.select_blocks_reference(cs, o, d, skip_e, skip_c)
+        err, ties = check_select(cs, o, d, pk.select_blocks(cs, o, d, skip_e, skip_c),
+                                 sel_p, f"K6 {name}")
+        errs["select_blocks"] = max(errs["select_blocks"], err)
+        msg = (f"{name}: C={cs.num_clusters}, dense {sum(prep.tables.counts)}, "
+               f"families {cs.families}; K6 max |de| {err:.3g}, {ties} id ties, "
+               f"entry rate {torch.isfinite(sel_p[0]).float().mean().item():.3f}")
+        if pk.dense_scan_ok(prep):
+            scan_k = pk.select_scan(cs, prep, o, d, skip_e, skip_c)
+            scan_p = pk.select_scan_reference(cs, prep, o, d, skip_e, skip_c)
+            err, ties = check_select(cs, o, d, scan_k[:5], scan_p[:5], f"K3 {name}")
+            (t_k, s_k), (t_p, s_p) = scan_k[5:], scan_p[5:]
+            hit_k, hit_p = s_k >= 0, s_p >= 0
+            both = hit_k & hit_p
+            hit_agree = (hit_k == hit_p).float().mean().item()
+            sid_agree = (s_k == s_p)[both].float().mean().item() if both.any() else 1.0
+            if not (hit_agree > 0.999 and sid_agree > 0.995 and torch.allclose(
+                    t_k[both], t_p[both], rtol=1e-5, atol=1e-4)):
+                raise AssertionError(f"K3 {name}: dense hits disagree")
+            if both.any():
+                err = max(err, (t_k[both] - t_p[both]).abs().max().item())
+            errs["select_scan"] = max(errs["select_scan"], err)
+            msg += (f"; K3 max err {err:.3g}, {ties} id ties, dense hit agreement "
+                    f"{hit_agree:.6f}")
+        c1, c2 = sel_p[1].contiguous(), sel_p[3].contiguous()
+        pair_k = pk.probe_pair(cs, o, d, c1, c2)
+        pair_p = pk.probe_pair_reference(cs, o, d, c1, c2)
+        for rnd, c, k, p in ((1, c1, pair_k[:2], pair_p[:2]), (2, c2, pair_k[2:], pair_p[2:])):
+            err, ties, rate = check_probe(cs, o, d, c, k, p, f"K4 {name} round {rnd}")
+            errs["probe_pair"] = max(errs["probe_pair"], err)
+            msg += f"; K4 round {rnd} max |dt| {err:.3g}, {ties} ties, hit rate {rate:.3f}"
+        err, ties, _ = check_probe(cs, o, d, c1, pk.probe_min(cs, o, d, c1), pair_p[:2],
+                                   f"K5 {name}")
+        errs["probe_min"] = max(errs["probe_min"], err)
+        log(msg + f"; K5 max |dt| {err:.3g}, {ties} ties")
+        if name == "museum_clustered":
+            continue
+
+        # device times at B = 16,384 at both table sizes
+        o16, d16 = o[:16_384], d[:16_384]
+        se, sc, a, b = (x[:16_384] for x in (skip_e, skip_c, c1, c2))
+        calls = {"select_blocks": (lambda: pk.select_blocks(cs, o16, d16, se, sc),
+                                   lambda: pk.select_blocks_reference(cs, o16, d16, se, sc)),
+                 "probe_pair": (lambda: pk.probe_pair(cs, o16, d16, a, b),
+                                lambda: pk.probe_pair_reference(cs, o16, d16, a, b)),
+                 "probe_min": (lambda: pk.probe_min(cs, o16, d16, a),
+                               lambda: pk.probe_min_reference(cs, o16, d16, a))}
+        if pk.dense_scan_ok(prep):
+            calls["select_scan"] = (
+                lambda: pk.select_scan(cs, prep, o16, d16, se, sc),
+                lambda: pk.select_scan_reference(cs, prep, o16, d16, se, sc))
+        times = {k: (cuda_ms(kern, 20), cuda_ms(plain, 3))
+                 for k, (kern, plain) in calls.items()}
+        log(f"{name} B=16384 device ms (kernel, plain): " + ", ".join(
+            f"{k} {ms:.4f} / {pms:.4f}" for k, (ms, pms) in times.items()))
+        if name == "mesh70k":
+            for k, (ms, pms) in times.items():
+                record.setdefault(k, {}).update(ms=ms, plain_ms=pms)
+    for k, err in errs.items():
+        record.setdefault(k, {})["max_abs_err"] = err
+
+
+def phase_mesh_path(device, record):
+    import torch
+    from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+    from wasm_pathtracer_tpu_torch.ops import wavefront
+    h = MESH
+    scene, prep = mesh70k(device)
+    cam = mesh_camera(device)
+    st = RenderSettings(render_type=RenderType.NORMAL_NEE,
+                        max_bounces=h["max_bounces"])
+    wavefront.render_queue_flat(prep, scene, st, cam, headline_queue(device, 4 * h["B"]),
+                                h["width"], h["height"], 1, h["B"])
+    pix = headline_queue(device, h["S"])
+    torch.cuda.synchronize()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    acc, cnt, cost, iters = wavefront.render_queue_flat(
+        prep, scene, st, cam, pix, h["width"], h["height"], 2, h["B"],
+        return_iters=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    expect_launches(launches, iters, ("select_scan", "probe_pair"))
+
+    total = int(cnt.sum())
+    pps = h["S"] / dt
+    tests = int(cost.sum()) / h["S"]
+    log(f"mesh path: mesh70k ({scene.num_shapes} shapes, C={prep.cluster.num_clusters}, "
+        f"dense {sum(prep.tables.counts)}) {h['width']}x{h['height']} NEE "
+        f"{h['max_bounces']} bounces, S={h['S']} B={h['B']}: {dt:.3f} s, {pps:.1f} paths/s, "
+        f"{iters} iterations, launches {launches}, samples {total}, mean radiance "
+        f"{acc.sum(0).div(h['S']).tolist()}, prim tests/path {tests:.1f}; {card_line()}")
+    if total != h["S"]:
+        raise AssertionError(f"counts sum to {total}, expected {h['S']}")
+    if not bool(torch.isfinite(acc).all()):
+        raise AssertionError("non-finite radiance")
+    for name in ("select_scan", "probe_pair"):
+        record.setdefault(name, {})["launches"] = launches[name]
+    record["mesh_path"] = dict(paths_per_sec=pps, seconds=dt, iterations=iters,
+                               prim_tests_per_path=tests)
+
+
+def agree_per_path(a, b, what):
+    """Per-path radiance of two 1-spp renders (acc, cnt): counts equal and
+    >= 99% of paths within rtol 1e-3 / atol 2e-3."""
+    (a_acc, a_cnt), (b_acc, b_cnt) = ((x.cpu().numpy(), y.cpu().numpy()) for x, y in (a, b))
+    close = np.isclose(a_acc, b_acc, rtol=1e-3, atol=2e-3).all(-1).mean()
+    same = np.array_equal(a_cnt, b_cnt)
+    log(f"{what}: counts equal {same}, per-path agreement {close:.4f}, mean "
+        f"{a_acc.mean(0).tolist()} vs {b_acc.mean(0).tolist()}")
+    if not (same and close >= 0.99):
+        raise AssertionError(f"{what}: renders disagree")
+
+
+def phase_mesh_gpu_vs_cpu(device, record):
+    import torch
+    from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+    from wasm_pathtracer_tpu_torch.models import scenes
+    from wasm_pathtracer_tpu_torch.ops import bvh, trace, wavefront
+    W = H = 32
+    st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=8)
+    out = []
+    for dev in (device, torch.device("cpu")):
+        scene = scenes.mesh_scene(scenes.surface_mesh(24), dev)
+        prep = bvh.attach_clusters(trace.prepare(scene), scene)
+        acc, cnt, _ = wavefront.render_queue_flat(
+            prep, scene, st, mesh_camera(dev), torch.arange(W * H, device=dev),
+            W, H, SEED, 256)
+        out.append((acc, cnt))
+    agree_per_path(*out, f"GPU vs CPU mesh ({scene.num_shapes} shapes, "
+                         f"C={prep.cluster.num_clusters}) {W}x{H} 1 spp")
+
+
+def phase_lockstep(device, record):
+    import torch
+    from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+    from wasm_pathtracer_tpu_torch.ops import integrator, wavefront
+    W = H = 64
+    scene, prep = mesh70k(device)
+    st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=8)
+    pix = torch.arange(W * H, device=device)
+    reset_counts()
+    acc, cnt, _, iters = integrator.render_queue(prep, scene, st, mesh_camera(device),
+                                                 pix, W, H, SEED, 1024, return_iters=True)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"lockstep mesh70k {W}x{H}: {iters} iterations, launches {launches}")
+    expect_launches(launches, iters, at_least_once=("fused_nearest", "probe_min"))
+    record.setdefault("probe_min", {})["launches"] = launches["probe_min"]
+    flat = wavefront.render_queue_flat(prep, scene, st, mesh_camera(device), pix, W, H,
+                                       SEED, 1024)
+    agree_per_path((acc, cnt), flat[:2], f"lockstep vs flat mesh70k {W}x{H} 1 spp")
+
+
+def phase_k6_path(device, record):
+    import torch
+    from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+    from wasm_pathtracer_tpu_torch.models.camera import initial_camera
+    from wasm_pathtracer_tpu_torch.ops import integrator, probe_kernels as pk
+    from wasm_pathtracer_tpu_torch.ops import trace, wavefront
+    W = H = 64
+    scene, prep = museum_clustered(device)
+    if pk.dense_scan_ok(prep):
+        raise AssertionError("the clustered museum's remainder should take K6")
+    st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=8)
+    cam = initial_camera(0, device)
+    pix = torch.arange(W * H, device=device)
+    reset_counts()
+    acc, cnt, _, iters = wavefront.render_queue_flat(prep, scene, st, cam, pix, W, H,
+                                                     SEED, 1024, return_iters=True)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"K6 path: museum clustered ({sum(prep.tables.counts)} dense, "
+        f"C={prep.cluster.num_clusters}) {W}x{H}: {iters} iterations, launches {launches}")
+    expect_launches(launches, iters, ("select_blocks", "fused_nearest", "probe_pair"))
+    record.setdefault("select_blocks", {})["launches"] = launches["select_blocks"]
+    ref = integrator.render_queue(trace.prepare(scene), scene, st, cam, pix, W, H,
+                                  SEED, 1024)
+    agree_per_path((acc, cnt), ref[:2], f"flat clustered vs dense museum {W}x{H} 1 spp")
+
+
+PHASES = {
+    "k1": phase_kernel_k1,
+    "k2": phase_kernel_k2,
+    "main": phase_main_path,
+    "gpu_vs_cpu": phase_gpu_vs_cpu,
+    "cli": phase_cli,
+    "clusters": phase_cluster_kernels,
+    "mesh": phase_mesh_path,
+    "mesh_gpu_vs_cpu": phase_mesh_gpu_vs_cpu,
+    "lockstep": phase_lockstep,
+    "k6_path": phase_k6_path,
+    "cli_cloud": phase_cli_cloud,
+}
+
+
+def main(argv) -> int:
+    import torch
+    unknown = [p for p in argv if p not in PHASES]
+    if unknown:
+        print(f"chip_smoke: unknown phases {unknown}; known: {list(PHASES)}",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -435,10 +852,9 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
-    log(card)
+    log(card_line())
 
     t0 = time.perf_counter()
     lib = _build.build()
@@ -446,22 +862,20 @@ def main() -> int:
     log((lib.parent / "ptxas.txt").read_text().strip())
 
     record = {}
-    phase_kernel_k1(device, record)
-    phase_kernel_k2(device, record)
-    phase_main_path(device, record)
-    phase_gpu_vs_cpu(device)
-    phase_cli()
+    for name in argv or PHASES:
+        t0 = time.perf_counter()
+        PHASES[name](device, record)
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    if argv:
+        log(json.dumps(record))
+        return 0
 
-    sources = {"fused_nearest": ("wasm_pathtracer_tpu/ops/scene_pallas.py:534",
-                                 "wasm_pathtracer_tpu_torch/csrc/scene_kernels.cu"),
-               "fused_occluded": ("wasm_pathtracer_tpu/ops/scene_pallas.py:447",
-                                  "wasm_pathtracer_tpu_torch/csrc/scene_kernels.cu")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=record[name]["launches"],
                     max_abs_err=record[name]["max_abs_err"],
                     ms=record[name]["ms"], plain_ms=record[name]["plain_ms"])
-               for name, (rep, src) in sources.items()]
-    log(json.dumps({"main_path": record["main_path"]}))
+               for name, rep, src in KERNELS]
+    log(json.dumps({"main_path": record["main_path"], "mesh_path": record["mesh_path"]}))
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -471,4 +885,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -13,7 +13,7 @@ from wasm_pathtracer_tpu_torch.models import camera as tcamera
 from wasm_pathtracer_tpu_torch.models import scenes as tscenes
 from wasm_pathtracer_tpu_torch.models.scene import TENSOR_FIELDS, scene_from_numpy
 
-SCENE_IDS = [0, 100, 101]
+SCENE_IDS = [0, 2, 3, 4, 100, 101]
 
 
 def _jax_arrays(scene):
@@ -52,8 +52,47 @@ def test_museum_shape():
 
 @pytest.mark.parametrize("scene_id", [1, 2, 3, 4, 5])
 def test_mesh_scenes_not_ported(scene_id):
-    with pytest.raises(NotImplementedError):
-        tscenes.select_scene(scene_id)
+    """The mesh and cloud ids follow the JAX registry: id 1 is no scene
+    in either package; 2-5 build with JAX's shape and light counts (2-4
+    also have identical tables, ``test_scene_tables_identical``)."""
+    if scene_id == 1:
+        for registry in (jscenes, tscenes):
+            with pytest.raises(ValueError):
+                registry.select_scene(scene_id)
+        return
+    j = jscenes.select_scene(scene_id)
+    t = tscenes.select_scene(scene_id)
+    for k in ("num_inf", "num_shapes", "num_lights", "num_plights"):
+        assert getattr(j, k) == getattr(t, k), k
+    np.testing.assert_array_equal(np.asarray(j.ptype), t.ptype.numpy())
+
+
+def _assert_same_tables(j, t):
+    for k, a in _jax_arrays(j).items():
+        np.testing.assert_array_equal(a, getattr(t, k).numpy(), err_msg=k)
+    assert (j.num_shapes, j.num_lights) == (t.num_shapes, t.num_lights)
+
+
+@pytest.mark.parametrize("n", [1, 37, 500])
+def test_cloud_and_meshes_identical(n):
+    """The generators and the mesh scenes, without and with an uploaded
+    mesh (the upload transform: x0.5, +5 z)."""
+    np.testing.assert_array_equal(tscenes.triangle_cloud(n), jscenes.triangle_cloud(n))
+    _assert_same_tables(jscenes.cloud(n), tscenes.cloud(n))
+    mesh = np.random.default_rng(n).uniform(-1, 1, (n, 3, 3)).astype(np.float32)
+    meshes = {tscenes.MESH_BUNNY_HIGH: mesh, tscenes.MESH_CLOUD_10K: mesh[::-1]}
+    _assert_same_tables(jscenes.cloud(n, meshes, jscenes.MESH_CLOUD_10K),
+                        tscenes.cloud(n, meshes, tscenes.MESH_CLOUD_10K))
+    _assert_same_tables(jscenes.bunny_high(meshes), tscenes.bunny_high(meshes))
+    assert tscenes.bunny_high(meshes).num_shapes == 4 + n
+
+
+@pytest.mark.parametrize("n", [5, 24])
+def test_surface_mesh_scene_identical(n):
+    surf = tscenes.surface_mesh(n)
+    np.testing.assert_array_equal(surf, jscenes.surface_mesh(n))
+    assert surf.shape == (2 * n * (n - 1), 3, 3)
+    _assert_same_tables(jscenes.mesh_scene(jscenes.surface_mesh(n)), tscenes.mesh_scene(surf))
 
 
 def test_invalid_scene_raises():

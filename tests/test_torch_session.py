@@ -17,7 +17,11 @@ from wasm_pathtracer_tpu.config import RenderType as JType
 from wasm_pathtracer_tpu.ops import accum as jaccum
 from wasm_pathtracer_tpu.runtime.session import Session as JSession
 from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+from wasm_pathtracer_tpu_torch.models import scenes as tscenes
+from wasm_pathtracer_tpu_torch.models.scene import TENSOR_FIELDS
 from wasm_pathtracer_tpu_torch.ops import accum
+from wasm_pathtracer_tpu_torch.ops.cluster import ARRAY_FIELDS
+from wasm_pathtracer_tpu_torch.ops.trace import INDEX_FIELDS
 from wasm_pathtracer_tpu_torch.runtime import session as tsession
 from wasm_pathtracer_tpu_torch.runtime.session import Session
 
@@ -85,11 +89,58 @@ def test_session_rejects_unported_settings(kw):
 
 
 def test_session_rejects_mesh_scenes_and_upload():
-    with pytest.raises(NotImplementedError):
-        Session(32, 32, scene_id=2, device="cpu")
-    s = Session(32, 32, scene_id=100, device="cpu")
-    with pytest.raises(NotImplementedError):
-        s.store_mesh(1, np.zeros((1, 3, 3), np.float32))
+    """Mesh scenes and mesh upload are ported: the bunny slot (scene 2)
+    renders without its mesh, ``store_mesh`` rebuilds the scene that uses
+    the uploaded mesh (and only that one) as the JAX session does, and a
+    malformed upload is rejected."""
+    mesh = np.asarray(tscenes.surface_mesh(6), np.float32)
+    j = JSession(32, 32, scene_id=2)
+    t = Session(32, 32, scene_id=2, device="cpu")
+    assert t.scene.num_shapes == 4 and t.prep.cluster is None
+    assert not t.store_mesh(3, mesh) and t.scene.num_shapes == 4   # scene 4's mesh
+    assert j.store_mesh(1, mesh) and t.store_mesh(1, mesh.reshape(-1, 3))
+    assert t.scene.num_shapes == 4 + mesh.shape[0]
+    for k in TENSOR_FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(j.scene, k)),
+                                      getattr(t.scene, k).numpy(), err_msg=k)
+    with pytest.raises(ValueError):
+        t.store_mesh(1, np.zeros((4, 2), np.float32))
+
+
+@pytest.mark.parametrize("use_bvh", [None, True, False])
+def test_session_prep_matches_jax(use_bvh):
+    """``use_bvh``: None clusters the families of >= bvh_min_triangles
+    shapes, True every finite family, False none; the dense remainder
+    and the cluster tables equal the JAX session's."""
+    j = JSession(16, 16, scene_id=4, use_bvh=use_bvh)
+    t = Session(16, 16, scene_id=4, use_bvh=use_bvh, device="cpu")
+    assert (j.prep.cluster is None) == (t.prep.cluster is None) == (use_bvh is False)
+    for k in INDEX_FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(j.prep, k)),
+                                      getattr(t.prep, k).numpy(), err_msg=k)
+    if t.prep.cluster is not None:
+        for k in ARRAY_FIELDS:
+            np.testing.assert_array_equal(np.asarray(getattr(j.prep.cluster, k)),
+                                          getattr(t.prep.cluster, k).numpy(), err_msg=k)
+
+
+def test_cluster_session_buffers_match_jax():
+    """Scene 4 (the 10k-triangle cloud) renders through both packages'
+    flat wavefronts."""
+    kw = dict(max_bounces=4, ray_batch_size=1024, regen_lanes=256)
+    j = JSession(32, 32, scene_id=4,
+                 left=JSettings(render_type=JType.NORMAL_NEE, **kw),
+                 right=JSettings(render_type=JType.NO_NEE, **kw))
+    t = Session(32, 32, scene_id=4,
+                left=RenderSettings(render_type=RenderType.NORMAL_NEE, **kw),
+                right=RenderSettings(render_type=RenderType.NO_NEE, **kw), device="cpu")
+    assert t.prep.cluster is not None
+    assert j.compute(2048) == t.compute(2048)
+    np.testing.assert_array_equal(np.asarray(j.buffer.count), t.buffer.count.numpy())
+    a0, a1 = np.asarray(j.buffer.acc), t.buffer.acc.numpy()
+    assert np.isclose(a1, a0, rtol=1e-3, atol=2e-3).all(-1).mean() >= 0.99
+    assert j.num_bvh_hits == t.num_bvh_hits
+    assert t.results().max() > 0
 
 
 def test_cuda_without_card_raises(monkeypatch):
@@ -109,6 +160,19 @@ def test_cli_writes_png(tmp_path):
               "--device", "cpu", "--out", str(out)])
     data = out.read_bytes()
     assert data[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+def test_cli_uploads_obj_into_bunny_slot(tmp_path):
+    """``--obj`` uploads the mesh as mesh id 1, the bunny slot of scene 2,
+    scaled x8 with z flipped as the client loads its bunny."""
+    from wasm_pathtracer_tpu_torch.runtime import cli
+    mesh = tmp_path / "m.obj"
+    mesh.write_text("v -0.1 0 0\nv 0.1 0 0\nv 0 0.2 0\nv 0 0.1 0.1\nf 1 2 3\nf 1 2 4\n")
+    out = tmp_path / "bunny.png"
+    cli.main(["--scene", "2", "--obj", str(mesh), "--width", "64", "--height", "64",
+              "--ticks", "2048", "--batch", "1024", "--max-bounces", "3",
+              "--device", "cpu", "--out", str(out)])
+    assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
 
 
 def test_port_never_loads_jax(tmp_path):

@@ -86,3 +86,28 @@ def test_vecmath_allclose(name):
     ref = np.asarray(fn(jvm, jnp.asarray(a), jnp.asarray(b)))
     out = fn(tvm, torch.from_numpy(a), torch.from_numpy(b)).numpy()
     np.testing.assert_allclose(out, ref, **_VM_TOL)
+
+
+OBJ = """# a quad, a triangle with negative indices, normals and texture refs
+v 0 0 0
+v 1 0 0
+v 1 1 0
+v 0 1 0
+vn 0 0 1
+f 1/1/1 2/2/1 3/3/1 4/4/1
+v 0 0 2
+f -1 -4 -3
+"""
+
+
+@pytest.mark.parametrize("scale,flip_z", [(1.0, False), (8.0, True)])
+def test_obj_loader_matches_jax(tmp_path, scale, flip_z):
+    from wasm_pathtracer_tpu.utils import obj as jobj
+    from wasm_pathtracer_tpu_torch.utils import obj as tobj
+    path = tmp_path / "m.obj"
+    path.write_text(OBJ)
+    ref = jobj.load_obj(str(path), scale=scale, flip_z=flip_z)
+    out = tobj.load_obj(str(path), scale=scale, flip_z=flip_z)
+    assert out.shape == (3, 3, 3) and out.dtype == np.float32
+    np.testing.assert_array_equal(out, ref)
+    assert tobj.parse_obj("v 0 0 0\n").shape == (0, 3, 3)

@@ -46,6 +46,14 @@ class RenderSettings:
     # wavefront width of render_queue; the session caps it at
     # max(1024, ray_batch_size // 4), as the JAX session does
     regen_lanes: int = 16384
+    # binned-SAH bins of the BVH build that orders the cluster structure
+    bvh_num_bins: int = 16
+    # a finite primitive family joins the cluster structure from this
+    # many shapes on; smaller families stay in the dense scene kernels
+    bvh_min_triangles: int = 512
+    # flattened cluster traversal (ops.wavefront.render_queue_flat);
+    # None = auto: whenever the scene has a cluster structure
+    use_flat_wavefront: bool | None = None
 
     def replace(self, **kw) -> "RenderSettings":
         return dataclasses.replace(self, **kw)

@@ -1,4 +1,5 @@
-// Per-family ray-primitive intersection for one (ray, primitive) pair.
+// Per-family ray-primitive intersection for one (ray, primitive) pair,
+// and the whole-table nearest-hit scan built from it.
 //
 // Scalar transcriptions of the Pallas family helpers in
 // wasm_pathtracer_tpu/ops/scene_pallas.py (_t_planes, _t_spheres,
@@ -223,6 +224,76 @@ __device__ __forceinline__ float torus_march(const Torus& s) {
   const bool ok = fabsf(s.sdf(t)) <= TORUS_HIT_TOL && t > 0.f &&
                   t <= s.t_out + TORUS_TOL;
   return ok ? t : INFINITY;
+}
+
+
+// ---------------------------------------------------------------------------
+// Family tables in shared memory, ray loads and the (t, code) fold, shared
+// by the scene kernels and the select kernel's dense scan.
+// ---------------------------------------------------------------------------
+
+struct Counts {
+  int n[N_FAMS];
+};
+
+struct Tables {
+  const float* fam[N_FAMS];
+  int n[N_FAMS];
+};
+
+// copy the concatenated family tables into shared memory
+__device__ __forceinline__ Tables stage_tables(const float* __restrict__ g,
+                                               const Counts& c, float* s) {
+  Tables tb;
+  int total = 0;
+  for (int f = 0; f < N_FAMS; ++f) {
+    tb.fam[f] = s + total;
+    tb.n[f] = c.n[f];
+    total += c.n[f] * fam_width(f);
+  }
+  for (int i = threadIdx.x; i < total; i += blockDim.x) s[i] = g[i];
+  __syncthreads();
+  return tb;
+}
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
+                                        const float* __restrict__ d, int i) {
+  Ray r;
+  r.ox = o[3 * i]; r.oy = o[3 * i + 1]; r.oz = o[3 * i + 2];
+  r.dx = d[3 * i]; r.dy = d[3 * i + 1]; r.dz = d[3 * i + 2];
+  return r;
+}
+
+// lexicographic (t, code) minimum; a miss is (inf, -1) and never wins
+__device__ __forceinline__ void take_min(float t, int code, float& bt, int& bc) {
+  if (t < bt || (t == bt && code < bc && t < INFINITY)) {
+    bt = t;
+    bc = code;
+  }
+}
+
+// Nearest hit of one ray over the slots j = first, first + stride, ...
+// of every family, folded into the lexicographic (t, code) minimum
+// (bt, bc).  Tori go last: the best hit so far bounds which marches can
+// matter (a torus hit is >= t_lo, so t_lo > bt means it cannot win).
+__device__ __forceinline__ void nearest_scan(const Tables& tb, const Ray& r,
+                                             int first, int stride,
+                                             float& bt, int& bc) {
+  for (int j = first; j < tb.n[FAM_PLANE]; j += stride)
+    take_min(t_plane(tb.fam[FAM_PLANE] + 6 * j, r), (FAM_PLANE << SLOT_BITS) | j, bt, bc);
+  for (int j = first; j < tb.n[FAM_SPHERE]; j += stride)
+    take_min(t_sphere(tb.fam[FAM_SPHERE] + 4 * j, r), (FAM_SPHERE << SLOT_BITS) | j, bt, bc);
+  for (int j = first; j < tb.n[FAM_TRI]; j += stride)
+    take_min(t_tri(tb.fam[FAM_TRI] + 9 * j, r), (FAM_TRI << SLOT_BITS) | j, bt, bc);
+  for (int j = first; j < tb.n[FAM_AARECT]; j += stride)
+    take_min(t_aarect(tb.fam[FAM_AARECT] + 6 * j, r), (FAM_AARECT << SLOT_BITS) | j, bt, bc);
+  for (int j = first; j < tb.n[FAM_SQUARE]; j += stride)
+    take_min(t_square(tb.fam[FAM_SQUARE] + 4 * j, r), (FAM_SQUARE << SLOT_BITS) | j, bt, bc);
+  for (int j = first; j < tb.n[FAM_TORUS]; j += stride) {
+    const Torus s = torus_setup(tb.fam[FAM_TORUS] + 5 * j, r);
+    if (!s.hit_box || s.t_lo() > bt) continue;
+    take_min(torus_march(s), (FAM_TORUS << SLOT_BITS) | j, bt, bc);
+  }
 }
 
 }  // namespace wpt

@@ -44,46 +44,6 @@ constexpr int RAYS_PER_BLOCK = BLOCK / SPLIT;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int SMEM_DEFAULT_LIMIT = 48 * 1024;
 
-struct Counts {
-  int n[N_FAMS];
-};
-
-struct Tables {
-  const float* fam[N_FAMS];
-  int n[N_FAMS];
-};
-
-// copy the concatenated family tables into shared memory
-__device__ __forceinline__ Tables stage_tables(const float* __restrict__ g,
-                                               const Counts& c, float* s) {
-  Tables tb;
-  int total = 0;
-  for (int f = 0; f < N_FAMS; ++f) {
-    tb.fam[f] = s + total;
-    tb.n[f] = c.n[f];
-    total += c.n[f] * fam_width(f);
-  }
-  for (int i = threadIdx.x; i < total; i += blockDim.x) s[i] = g[i];
-  __syncthreads();
-  return tb;
-}
-
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
-                                        const float* __restrict__ d, int i) {
-  Ray r;
-  r.ox = o[3 * i]; r.oy = o[3 * i + 1]; r.oz = o[3 * i + 2];
-  r.dx = d[3 * i]; r.dy = d[3 * i + 1]; r.dz = d[3 * i + 2];
-  return r;
-}
-
-// lexicographic (t, code) minimum; a miss is (inf, -1) and never wins
-__device__ __forceinline__ void take_min(float t, int code, float& bt, int& bc) {
-  if (t < bt || (t == bt && code < bc && t < INFINITY)) {
-    bt = t;
-    bc = code;
-  }
-}
-
 __global__ void __launch_bounds__(BLOCK)
 fused_nearest_kernel(const float* __restrict__ tables, Counts counts,
                      const float* __restrict__ o, const float* __restrict__ d,
@@ -98,23 +58,7 @@ fused_nearest_kernel(const float* __restrict__ tables, Counts counts,
   int bc = -1;
   if (ray < n_rays) {
     const Ray r = load_ray(o, d, ray);
-    for (int j = sub; j < tb.n[FAM_PLANE]; j += SPLIT)
-      take_min(t_plane(tb.fam[FAM_PLANE] + 6 * j, r), (FAM_PLANE << SLOT_BITS) | j, bt, bc);
-    for (int j = sub; j < tb.n[FAM_SPHERE]; j += SPLIT)
-      take_min(t_sphere(tb.fam[FAM_SPHERE] + 4 * j, r), (FAM_SPHERE << SLOT_BITS) | j, bt, bc);
-    for (int j = sub; j < tb.n[FAM_TRI]; j += SPLIT)
-      take_min(t_tri(tb.fam[FAM_TRI] + 9 * j, r), (FAM_TRI << SLOT_BITS) | j, bt, bc);
-    for (int j = sub; j < tb.n[FAM_AARECT]; j += SPLIT)
-      take_min(t_aarect(tb.fam[FAM_AARECT] + 6 * j, r), (FAM_AARECT << SLOT_BITS) | j, bt, bc);
-    for (int j = sub; j < tb.n[FAM_SQUARE]; j += SPLIT)
-      take_min(t_square(tb.fam[FAM_SQUARE] + 4 * j, r), (FAM_SQUARE << SLOT_BITS) | j, bt, bc);
-    // tori last: the best hit so far bounds which marches can matter.
-    // A torus hit is >= t_lo, so t_lo > bt means it cannot win.
-    for (int j = sub; j < tb.n[FAM_TORUS]; j += SPLIT) {
-      const Torus s = torus_setup(tb.fam[FAM_TORUS] + 5 * j, r);
-      if (!s.hit_box || s.t_lo() > bt) continue;
-      take_min(torus_march(s), (FAM_TORUS << SLOT_BITS) | j, bt, bc);
-    }
+    nearest_scan(tb, r, sub, SPLIT, bt, bc);
   }
   // combine the SPLIT partial minima of each ray (all lanes take part)
 #pragma unroll

@@ -20,8 +20,7 @@ import tempfile
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC.parent.parent / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -30,6 +29,14 @@ _SIGNATURES = {
     "wpt_fused_nearest": [_P] + [_I] * 6 + [_P, _P, _I, _P, _P, _P, _P],
     # tables, 6 family counts, o, d, dist, excl, R, occ_out, stream
     "wpt_fused_occluded": [_P] + [_I] * 6 + [_P, _P, _P, _P, _I, _P, _P],
+    # aabbs, C, o, d, skip_e, skip_c, R, ent_out, cid_out, stream
+    "wpt_select": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
+    # ... as wpt_select, then dense tables, 6 family counts, dense sids,
+    # t_out, sid_out, stream
+    "wpt_select_scan": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P] + [_I] * 6
+                       + [_P, _P, _P, _P],
+    # table, C, G, o, d, cidx, n_rounds, R, t_out, sid_out, stream
+    "wpt_probe": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],
 }
 
 
@@ -59,23 +66,42 @@ def source_hash() -> str:
 
 def build() -> pathlib.Path:
     """Compile the sources if no library for their hash exists yet;
-    return the library's path.  The compiler's report (registers, shared
-    memory, spills per kernel) is kept beside it as ``ptxas.txt``."""
+    return the library's path.  Each ``.cu`` compiles in its own ``nvcc``
+    process, all started together, then one link.  The compiler's report
+    (registers, shared memory, spills per kernel) is kept beside the
+    library as ``ptxas.txt``."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / "libwpt_kernels.so"
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    (out_dir / "ptxas.txt").write_text(proc.stderr)
-    os.replace(tmp, lib)   # atomic: a concurrent loader sees all or nothing
+    nvcc = _nvcc()
+    work = pathlib.Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        procs = []
+        for cu in sorted(CSRC.glob("*.cu")):
+            obj = work / (cu.stem + ".o")
+            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-I", str(CSRC),
+                   "-o", str(obj), str(cu)]
+            procs.append((cu.name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        # wait for every compile before looking at any result
+        errs = [proc.communicate()[1] for _, _, proc in procs]
+        report = []
+        for (name, _, proc), err in zip(procs, errs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {name} ({proc.returncode}):\n{err}")
+            report.append(f"== {name}\n{err}")
+        tmp = work / "lib.so"
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                               *(str(obj) for _, obj, _ in procs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        (out_dir / "ptxas.txt").write_text("\n".join(report))
+        os.replace(tmp, lib)   # atomic: a concurrent loader sees all or nothing
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib
 
 

@@ -1,12 +1,13 @@
 """Scene tracing: nearest hit, shadow rays, hit shading info
 (``wasm_pathtracer_tpu.ops.trace``).
 
-Both queries go through the whole-scene kernels of
+The dense families of a scene go through the whole-scene kernels of
 ``ops.scene_kernels``: :func:`trace_scene` through the nearest-hit
-kernel and :func:`shadow_ray` through the any-hit kernel.  Their
-wrappers take the plain PyTorch versions for CPU tensors.  The JAX
-package's cluster and BVH structures (for meshes) come with the mesh
-slice of the port; until then :class:`ScenePrep` has no field for them.
+kernel and :func:`shadow_ray` through the any-hit kernel.  A prep with a
+cluster structure (``ops.bvh.attach_clusters``) merges the clusters'
+nearest hit after the dense one (``ops.cluster.trace_clusters``), and
+its shadow rays are nearest-hit traces plus the occlusion comparison.
+The kernel wrappers take their plain PyTorch versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from wasm_pathtracer_tpu_torch.models.scene import PrimType, SceneData
+from wasm_pathtracer_tpu_torch.ops import cluster as cl
 from wasm_pathtracer_tpu_torch.ops import intersect as isx
 from wasm_pathtracer_tpu_torch.ops import scene_kernels
 from wasm_pathtracer_tpu_torch.utils import vecmath as vm
@@ -31,6 +33,8 @@ class ScenePrep:
     ``code_of`` maps a shape id to its kernel code (``fam << 20 | slot``);
     ``sid_of_slot[fam_offset[fam] + slot]`` maps a kernel (fam, slot)
     back to a shape id.  All are int64 except ``code_of`` (int32).
+    ``cluster`` is the cluster structure over the shapes that left the
+    index sets, or None.
     """
 
     idx_plane: torch.Tensor
@@ -43,17 +47,28 @@ class ScenePrep:
     sid_of_slot: torch.Tensor
     fam_offset: torch.Tensor
     tables: scene_kernels.SceneTables
+    cluster: cl.ClusterSet | None = None
+
+
+# ScenePrep's index sets, in family (PrimType) order
+INDEX_FIELDS = ("idx_plane", "idx_sphere", "idx_triangle", "idx_torus",
+                "idx_aarect", "idx_square")
 
 
 def prepare(scene: SceneData) -> ScenePrep:
     """Host-side split of the shape table into per-family index sets.
     Call it again after changing the scene: the tables are a copy."""
     ptype = scene.ptype.cpu().numpy()
+    return prepare_from_sets(scene, [np.nonzero(ptype == int(t))[0]
+                                     for t in PrimType])
+
+
+def prepare_from_sets(scene: SceneData, index_sets, cluster=None) -> ScenePrep:
+    """A prep whose dense families are the six given shape-id sets (in
+    family order), with ``cluster`` attached."""
     dev = scene.device
-    sets = [torch.as_tensor(np.nonzero(ptype == int(t))[0], dtype=torch.int64,
-                            device=dev)
-            for t in (PrimType.PLANE, PrimType.SPHERE, PrimType.TRIANGLE,
-                      PrimType.TORUS, PrimType.AARECT, PrimType.SQUARE)]
+    sets = [torch.as_tensor(np.asarray(s), dtype=torch.int64, device=dev)
+            for s in index_sets]
     sizes = [int(s.shape[0]) for s in sets]
     offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
     return ScenePrep(
@@ -65,6 +80,7 @@ def prepare(scene: SceneData) -> ScenePrep:
                                                   device=dev)]),
         fam_offset=torch.as_tensor(offsets, dtype=torch.int64, device=dev),
         tables=scene_kernels.build_tables(sets, scene.params),
+        cluster=cluster,
     )
 
 
@@ -74,18 +90,29 @@ def trace_scene(prep: ScenePrep, scene: SceneData, o, d):
     Returns ``(t, shape_id, hit_mask, cost)`` — ``cost`` counts
     primitive tests per ray.
     """
-    return scene_kernels.trace_scene_fused(prep, scene, o, d)
+    t, sid, hit, cost = scene_kernels.trace_scene_fused(prep, scene, o, d)
+    if prep.cluster is None:
+        return t, sid, hit, cost
+    t_cl, sid_cl, rounds = cl.trace_clusters(prep.cluster, o, d, t)
+    better = sid_cl >= 0
+    sid = torch.where(better, sid_cl, sid)
+    hit = torch.isfinite(t_cl)
+    return t_cl, sid, hit, cost + rounds * prep.cluster.group
 
 
 def shadow_ray(prep: ScenePrep, scene: SceneData, p, point_on_light,
                light_sid, epsilon: float = isx.EPSILON):
     """Occlusion test; the target light shape itself does not occlude.
-    Returns (occluded mask, cost)."""
+    Returns (occluded mask, cost).  Without clusters this is the any-hit
+    kernel; with them, a nearest-hit trace and the comparison."""
     to_l = point_on_light - p
     dir_len = vm.length(to_l)
     d = to_l / dir_len[..., None]
     o = p + d * epsilon
-    return scene_kernels.occluded_fused(prep, scene, o, d, dir_len, light_sid)
+    if prep.cluster is None:
+        return scene_kernels.occluded_fused(prep, scene, o, d, dir_len, light_sid)
+    t, sid, hit, cost = trace_scene(prep, scene, o, d)
+    return hit & (t < dir_len) & (sid != light_sid), cost
 
 
 # ---------------------------------------------------------------------------

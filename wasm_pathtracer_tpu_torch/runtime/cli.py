@@ -20,7 +20,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--scene", type=int, default=0,
-                   help="scene id (0=museum, 100=sphere+plane, 101=whitted)")
+                   help="scene id (0=museum, 2=bunny, 3/4/5=100/10k/100k-"
+                        "triangle cloud, 100=sphere+plane, 101=whitted)")
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--left-type", type=int, default=1, choices=[0, 1],
@@ -34,6 +35,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="persistent-wavefront lane count")
     p.add_argument("--ticks", type=int, default=65536,
                    help="paths to trace, split between the halves")
+    p.add_argument("--obj", type=str, default=None,
+                   help="OBJ mesh to upload as mesh id 1 (the bunny slot)")
     p.add_argument("--out", type=str, default=None, help="output PNG path")
     p.add_argument("--bench", action="store_true",
                    help="print a JSON throughput report")
@@ -74,6 +77,10 @@ def main(argv=None):
                    left=settings(args.left_type),
                    right=settings(args.right_type),
                    seed=args.seed, device=args.device)
+    if args.obj:
+        from wasm_pathtracer_tpu_torch.utils.obj import load_obj
+        # the client's preparation of its bunny: scale x8, flip z
+        sess.store_mesh(1, load_obj(args.obj, scale=8.0, flip_z=True))
 
     def sync():
         if sess.device.type == "cuda":

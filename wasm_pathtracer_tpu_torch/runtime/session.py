@@ -3,10 +3,14 @@
 A viewport split into two halves, each a :class:`RenderInstance` with its
 own estimator settings, accumulating into one shared buffer.  Each
 compute step draws a batch of uniformly random pixels and path-traces
-them through the regenerating wavefront (``integrator.render_queue``).
+them through the regenerating wavefront: ``integrator.render_queue``,
+or ``wavefront.render_queue_flat`` when the scene has a cluster
+structure.  Finite families of at least ``bvh_min_triangles`` shapes are
+clustered (every finite family with ``use_bvh=True``, none with
+``use_bvh=False``).
 
 Not ported yet, and rejected with ``NotImplementedError``: photon NEE
-(PNEE), adaptive sampling, mesh upload, and the mesh/cloud scenes.
+(PNEE) and adaptive sampling.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ import torch
 from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
 from wasm_pathtracer_tpu_torch.models import scenes as scene_registry
 from wasm_pathtracer_tpu_torch.models.camera import Camera, initial_camera
-from wasm_pathtracer_tpu_torch.ops import accum, adaptive, integrator, trace
+from wasm_pathtracer_tpu_torch.ops import (accum, adaptive, bvh, integrator,
+                                           trace, wavefront)
 from wasm_pathtracer_tpu_torch.utils import rng as rnglib
 from wasm_pathtracer_tpu_torch.utils.png import tonemap_u8
 
@@ -70,13 +75,15 @@ class RenderInstance:
         lanes = min(st.regen_lanes, batch, max(1024, batch // 4))
         # decorrelates the halves' RNG streams under the same round seed
         rid_base = 0x40000000 if self.x0 > 0 or self.y0 > 0 else 0
+        use_flat = s.prep.cluster is not None and st.use_flat_wavefront is not False
+        queue_fn = wavefront.render_queue_flat if use_flat else integrator.render_queue
         traced = 0
         costs = []
         while traced < num_ticks:
             seed = fold_seed(s.seed, self.round)
             px, py = adaptive.random_pixels(batch, seed, self.x0, self.y0,
                                             self.width, self.height, s.device)
-            acc_s, cnt_s, cost = integrator.render_queue(
+            acc_s, cnt_s, cost = queue_fn(
                 s.prep, s.scene, st, s.camera, py * W + px, W, H, seed,
                 lanes, rid_base=rid_base)
             accum.write_sums(s.buffer, acc_s, cnt_s)
@@ -110,10 +117,13 @@ class Session:
                  left: RenderSettings | None = None,
                  right: RenderSettings | None = None,
                  seed: int = 0xBABABEBE,
+                 use_bvh: bool | None = None,
                  device="cuda"):
         self.device = resolve_device(device)
         self.width, self.height = width, height
         self.seed = seed
+        self.use_bvh = use_bvh
+        self.meshes: dict[int, np.ndarray] = {}
         self.textures: dict[int, np.ndarray] = {}
         self._load_scene(scene_id)
         self.camera = (camera or initial_camera(scene_id)).to(self.device)
@@ -125,10 +135,19 @@ class Session:
         self.right = RenderInstance(self, lw, 0, width - lw, height, right)
 
     def _load_scene(self, scene_id: int):
-        self.scene = scene_registry.select_scene(scene_id, self.textures,
-                                                 self.device)
+        self.scene = scene_registry.select_scene(scene_id, self.meshes,
+                                                 self.textures, self.device)
         self.scene_id = scene_id
-        self.prep = trace.prepare(self.scene)
+        self.prep = self._prepare(self.scene)
+
+    def _prepare(self, scene):
+        prep = trace.prepare(scene)
+        if self.use_bvh is False:
+            return prep
+        defaults = RenderSettings()
+        min_count = 1 if self.use_bvh else defaults.bvh_min_triangles
+        return bvh.attach_clusters(prep, scene, num_bins=defaults.bvh_num_bins,
+                                   min_count=min_count)
 
     def compute(self, num_samples: int) -> int:
         """Ticks split between the halves; returns paths traced."""
@@ -174,8 +193,20 @@ class Session:
         self.reset()
 
     def store_mesh(self, mesh_id: int, vertices) -> bool:
-        raise NotImplementedError("mesh upload comes with the mesh slice of "
-                                  "the port")
+        """Upload a mesh: ``vertices`` is (V, 3) or (T, 3, 3).  Returns
+        True when the current scene uses the mesh (scene id = mesh id + 1)
+        and was rebuilt with it."""
+        v = np.asarray(vertices, np.float32)
+        if v.ndim == 2:
+            v = v.reshape(-1, 3, 3)
+        if v.ndim != 3 or v.shape[1:] != (3, 3):
+            raise ValueError(f"mesh vertices must be (V, 3) or (T, 3, 3), got "
+                             f"{np.shape(vertices)}")
+        self.meshes[mesh_id] = v
+        if self.scene_id == mesh_id + 1:
+            self.update_scene(self.scene_id)
+            return True
+        return False
 
     @property
     def num_bvh_hits(self) -> int:
