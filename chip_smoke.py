@@ -62,18 +62,65 @@ its last line):
 12. Lockstep against flat on the card: mesh70k at 64x64, 1 spp, through
    ``render_queue`` with the cluster prep (K1 and K5 in the lockstep
    cluster trace) and through ``render_queue_flat``: counts equal,
-   >= 99% of paths agree, K5 launched.
+   >= 99% of paths agree, K5 launched.  Then the lockstep trace once
+   more with ``unreduced_probe`` (K7 and a reduction outside the
+   kernel): the same rounds, K7 launched as often as K5 was, paths agree.
 13. The K6 path: the museum with its lights dense, 64x64, 1 spp, through
    ``render_queue_flat`` (K6 beside K1, then K4) against ``render_queue``
    without clusters: counts equal, >= 99% of paths agree, K6, K1 and K4
    launched once per iteration.
 14. The CLI renders scene 5 (the 100k-triangle cloud) at 512x512 through
    the session's flat wavefront and writes a non-black PNG.
+15. K8, the dense triangle sweep, against its plain version (runs before
+   phase 8): mesh70k's 70,314 triangles and cloud300k's 300,002, 16,384 +
+   37 camera and random rays each.  Hits agree on > 99.9% of rays, t
+   within rtol 1e-5 / atol 1e-5, slots on > 99% (the kernel's rsqrt is
+   approximate and nvcc contracts to FMA; a slot may differ on a tie).
+   Device times at 16,384 mesh70k rays.
+16. K7, the unreduced probe, inside phase 9 on the same three cluster
+   sets and clusters: finiteness equal on > 99.9% of the (B, G) entries,
+   values within rtol 1e-5 / atol 1e-5, and the minimum over G equal to
+   K5's t bit for bit.  Device times with K3-K6.
+17. The dense-sweep path at full width: mesh70k with
+   ``prepare(scene, use_pallas=True)`` and no clusters, 512x512, NEE, 8
+   bounces, S = 524,288, B = 16,384 through ``render_queue``.  Every
+   sample counted once, finite radiance, K8 and K1 launched twice per
+   iteration (a nearest hit and a shadow trace), K2-K7 never.  Then a
+   short run of the same loop under ``torch.profiler`` for the share of
+   wall time the device was busy.
+18. BVH4 against the sweep: mesh70k at 64x64, 1 spp, ``render_queue``
+   with ``attach_bvh`` against the ``use_pallas`` prep: counts equal,
+   >= 99% of paths agree, mean node visits per primary ray below 1% of
+   the triangle count.  The walk launches no kernel of the port.
+19. Museum PNEE at full width: ``emit_photons`` in batches of 65,536 to
+   the 300,000-photon budget (K1 once per batch), then with the counts
+   reset S = 2,621,440, 512x512, PNEE, 8 bounces, B = 16,384 through
+   ``render_queue``: counts exact, finite, K1 and K2 once per iteration.
+20. Adaptive session: ``Session(1920, 1080, scene 0)``, both halves NEE +
+   adaptive at ``ray_batch_size`` 262,144, 8 bounces, with the bootstrap
+   cut to 1 sample per pixel (4 batches a half) and two steady-state
+   batches a half: every pixel sampled by the bootstrap sweep, the floor
+   sweep advanced, the density view not constant, and the excess mass
+   below 2^24 (where a float32 cumulative sum is exact).
+21. The CLI with ``--right-type 2 --right-adaptive --show-sampling``
+   (museum) and with ``--debug-view bvh`` (scene 4) writes PNGs that are
+   not black.
 
-The last lines of standard output are a JSON record of the museum and
-mesh paths, the card's name and power limit, a JSON record of each
-kernel (launches in the run of the path it serves, max |kernel - plain|,
-kernel and plain ms) and a JSON status line.
+Each kernel's ``bound_ms`` is the least time the card could take for the
+call that was timed: the larger of its bytes (each input and output
+once) over 3.35 TB/s and its float32 operations over 67 TFLOP/s, the
+H100's published rates.  Operations are counted from the inputs with the
+per-test costs in ``FLOPS`` (one per add, multiply, compare, min, max,
+divide or square root of the test as written in ``csrc``); torus marches
+are counted at the steps these rays take (``torus_work``), and K8 at the
+TPU kernel's 78 per pair.  No single PyTorch call computes any of the
+eight functions, so ``library_ms`` is null.
+
+The last lines of standard output are a JSON record of the paths, the
+card's name and power limit, a JSON record of each kernel (launches in
+the run of the path it serves, max |kernel - plain|, kernel, plain and
+bound ms) and a JSON status line.  The whole script takes about two and
+a half minutes on an H100.
 """
 
 from __future__ import annotations
@@ -126,7 +173,90 @@ def cuda_ms(fn, n):
     return us / 1e3 / n
 
 
-# (wrapper, TPU kernel it replaces, CUDA source), K1 to K6
+PEAK_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
+PEAK_BYTES = 3.35e12   # H100 SXM HBM3
+# operations of one ray-primitive test as csrc/scene_families.cuh writes
+# it, by family; "box" is one slab test, "sdf" one torus march step,
+# "newton" one polish step, "sweep" K8's pair with the plane precomputed
+FLOPS = {0: 19, 1: 30, 2: 113, 4: 27, 5: 15, "box": 27, "sdf": 22, "newton": 45,
+         "sweep": 78}
+
+
+def bound(flops, n_bytes):
+    """(bound_ms, bound_by) of a call needing ``flops`` operations and
+    ``n_bytes`` bytes of traffic."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, n_bytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def torus_work(rows, o, d, t_max=None):
+    """Operations the torus tests of (R, 3) rays against ``rows`` (n, 5)
+    need on these inputs: a box test per pair, then for each pair whose
+    box is hit (before ``t_max`` (R,), if given) the march steps and
+    Newton steps taken until they reach their fixed point, as
+    ``torus_march`` in ``csrc/scene_families.cuh`` exits."""
+    import torch
+    from wasm_pathtracer_tpu_torch.ops import intersect as isx
+    if rows.shape[0] == 0:
+        return 0
+    lo = o[:, None, :] - rows[None, :, 0:3]
+    ld = d[:, None, :]
+    big_r, small_r = rows[None, :, 3], rows[None, :, 4]
+    ext = torch.stack([big_r + small_r, small_r, big_r + small_r], dim=-1) * torch.ones_like(lo)
+    inv_d = 1.0 / torch.where(ld.abs() < 1e-30, 1e-30, ld)
+    t1, t2 = (-ext - lo) * inv_d, (ext - lo) * inv_d
+    t_in = torch.minimum(t1, t2).amax(-1)
+    t_out = torch.maximum(t1, t2).amin(-1)
+    t_lo = t_in.clamp(min=1e-4)
+    live = (t_in < t_out) & (t_out > 0)
+    if t_max is not None:
+        live &= t_lo < t_max[:, None]
+
+    def sdf(t):
+        return isx._torus_sdf(lo + ld * t[..., None], big_r, small_r)
+
+    t = t_lo
+    sign0 = torch.sign(sdf(t))
+    sign0 = torch.where(sign0 == 0, 1.0, sign0)
+    dist = sign0 * sdf(t)
+    relaxed = torch.ones_like(live)
+    marching = live.clone()
+    n_sdf = 0
+    for _ in range(24):
+        step = dist * torch.where(relaxed, 1.6, 1.0)
+        can = (dist > 1e-4) & (t < t_out)
+        t2_ = t + torch.where(can, step, 0.0)
+        d2 = sign0 * sdf(t2_)
+        n_sdf += int(marching.sum())
+        accept = (step <= 1e-4) | (d2 + dist >= step)
+        marching &= can | (d2 != dist)
+        t = torch.where(accept, t2_, t)
+        dist = torch.where(accept, d2, dist)
+        relaxed = accept
+    # a Newton step runs while |f| > 1e-6; four at most (counted as the
+    # march leaves them: converged marches take none)
+    n_newton = 4 * int((live & (dist.abs() > 1e-6)).sum())
+    return (o.shape[0] * rows.shape[0] * FLOPS["box"] + n_sdf * FLOPS["sdf"]
+            + n_newton * FLOPS["newton"])
+
+
+def scene_flops(tables, o, d, t_max=None):
+    """Operations one whole-scene test of these rays needs (K1, K2, K3's
+    dense half)."""
+    R = o.shape[0]
+    total = sum(R * tables.counts[f] * FLOPS[f] for f in (0, 1, 2, 4, 5))
+    return total + torus_work(tables.family(3), o, d, t_max)
+
+
+def probe_flops(cs, cidx):
+    """Operations one probe round needs: each ray's cluster's real slots
+    at their family's cost (mesh70k and the clouds hold triangles only;
+    a torus slot is counted at its box test)."""
+    bt = cs.btype[cidx.long().clamp(0, cs.num_clusters - 1)]
+    return sum(int((bt == f).sum()) * FLOPS.get(f, FLOPS["box"]) for f in cs.families)
+
+
+# (wrapper, TPU kernel it replaces, CUDA source), K1 to K8
 KERNELS = (
     ("fused_nearest", "wasm_pathtracer_tpu/ops/scene_pallas.py:534",
      "wasm_pathtracer_tpu_torch/csrc/scene_kernels.cu"),
@@ -140,6 +270,10 @@ KERNELS = (
      "wasm_pathtracer_tpu_torch/csrc/probe_kernels.cu"),
     ("select_blocks", "wasm_pathtracer_tpu/ops/probe_pallas.py:398",
      "wasm_pathtracer_tpu_torch/csrc/probe_kernels.cu"),
+    ("probe_blocks", "wasm_pathtracer_tpu/ops/probe_pallas.py:790",
+     "wasm_pathtracer_tpu_torch/csrc/probe_kernels.cu"),
+    ("dense_tri_nearest", "wasm_pathtracer_tpu/ops/traverse_pallas.py:117",
+     "wasm_pathtracer_tpu_torch/csrc/traverse_kernels.cu"),
 )
 
 
@@ -147,9 +281,11 @@ def wrappers():
     """Kernel wrapper of each name in ``KERNELS``."""
     from wasm_pathtracer_tpu_torch.ops import probe_kernels as pk
     from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
+    from wasm_pathtracer_tpu_torch.ops import traverse_kernels as tk
     return {"fused_nearest": sk.fused_nearest, "fused_occluded": sk.fused_occluded,
             "select_scan": pk.select_scan, "probe_pair": pk.probe_pair,
-            "probe_min": pk.probe_min, "select_blocks": pk.select_blocks}
+            "probe_min": pk.probe_min, "select_blocks": pk.select_blocks,
+            "probe_blocks": pk.probe_blocks, "dense_tri_nearest": tk.dense_tri_nearest}
 
 
 def reset_counts():
@@ -161,12 +297,16 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in wrappers().items()}
 
 
-def expect_launches(launches, iters, once_per_iteration=(), at_least_once=()):
+def expect_launches(launches, iters, once_per_iteration=(), at_least_once=(),
+                    twice_per_iteration=()):
     """Each kernel of ``once_per_iteration`` launched ``iters`` times, each
-    of ``at_least_once`` some times, every other kernel never."""
+    of ``twice_per_iteration`` twice that, each of ``at_least_once`` some
+    times, every other kernel never."""
     for name, n in launches.items():
         if name in once_per_iteration:
             ok = n == iters
+        elif name in twice_per_iteration:
+            ok = n == 2 * iters
         elif name in at_least_once:
             ok = n > 0
         else:
@@ -330,9 +470,13 @@ def phase_kernel_k1(device, record):
             o16, d16 = o[:16_384].contiguous(), d[:16_384].contiguous()
             ms = cuda_ms(lambda: sk.fused_nearest(tables, o16, d16), 50)
             plain_ms = cuda_ms(lambda: sk.fused_nearest_reference(tables, o16, d16), 5)
-    log(f"K1 museum B=16384: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            b_ms, b_by = bound(scene_flops(tables, o16, d16),
+                               4 * tables.flat.numel() + 16_384 * (24 + 12))
+    log(f"K1 museum B=16384: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms by {b_by}")
     record.setdefault("fused_nearest", {}).update(max_abs_err=worst, ms=ms,
-                                                  plain_ms=plain_ms)
+                                                  plain_ms=plain_ms, bound_ms=b_ms,
+                                                  bound_by=b_by)
 
 
 def phase_kernel_k2(device, record):
@@ -380,9 +524,73 @@ def phase_kernel_k2(device, record):
             args = [x[:16_384].contiguous() for x in (so, sd, dist, excl)]
             ms = cuda_ms(lambda: sk.fused_occluded(tables, *args), 50)
             plain_ms = cuda_ms(lambda: sk.fused_occluded_reference(tables, *args), 5)
-    log(f"K2 museum B=16384: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            # a torus whose box entry lies beyond the light cannot occlude
+            b_ms, b_by = bound(scene_flops(tables, args[0], args[1], t_max=args[2]),
+                               4 * tables.flat.numel() + 16_384 * (24 + 8 + 1))
+    log(f"K2 museum B=16384: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms by {b_by}")
     record.setdefault("fused_occluded", {}).update(max_abs_err=worst, ms=ms,
-                                                   plain_ms=plain_ms)
+                                                   plain_ms=plain_ms, bound_ms=b_ms,
+                                                   bound_by=b_by)
+
+
+def busy_share(fn):
+    """Share of the wall time of ``fn()`` in which the device ran a
+    kernel: summed kernel durations from ``torch.profiler`` over the host
+    clock (the profiler's own overhead is in the wall time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.device_time)
+    total = sum(us for _, us in by_name.values())
+    if total <= 0:
+        raise RuntimeError("torch.profiler recorded no CUDA kernel time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]
+    log(f"device time {total / 1e3:.1f} ms of {1e3 * wall:.1f} ms wall in "
+        f"{sum(n for n, _ in by_name.values())} kernels; top: " + "; ".join(
+            f"{name[:48]} x{n} {us / 1e3:.1f} ms" for name, (n, us) in top))
+    return total / 1e6 / wall
+
+
+def run_queue(what, queue_fn, prep, scene, st, cam, h, device, **kw):
+    """Warm up, then drive ``queue_fn`` over ``h['S']`` random pixels of
+    an ``h['width']`` x ``h['height']`` frame with the counts set to 0
+    just before and read just after.  Checks that every sample is counted
+    once and the radiance is finite.  Returns (launches, iterations,
+    record dict)."""
+    import torch
+    queue_fn(prep, scene, st, cam, headline_queue(device, 2 * h["B"]),
+             h["width"], h["height"], 1, h["B"], **kw)
+    pix = headline_queue(device, h["S"])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    acc, cnt, cost, iters = queue_fn(prep, scene, st, cam, pix, h["width"], h["height"],
+                                     2, h["B"], return_iters=True, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    total = int(cnt.sum())
+    tests = int(cost.sum()) / h["S"]
+    log(f"{what}: {h['width']}x{h['height']} {st.render_type.name} {st.max_bounces} "
+        f"bounces, S={h['S']} B={h['B']}: {dt:.3f} s, {h['S'] / dt:.1f} paths/s, {iters} "
+        f"iterations, launches {launches}, samples {total}, mean radiance "
+        f"{acc.sum(0).div(h['S']).tolist()}, prim tests/path {tests:.1f}; {card_line()}")
+    if total != h["S"]:
+        raise AssertionError(f"{what}: counts sum to {total}, expected {h['S']}")
+    if not bool(torch.isfinite(acc).all()):
+        raise AssertionError(f"{what}: non-finite radiance")
+    return launches, iters, dict(paths_per_sec=h["S"] / dt, seconds=dt, iterations=iters,
+                                 prim_tests_per_path=tests)
 
 
 def headline_queue(device, S):
@@ -393,48 +601,20 @@ def headline_queue(device, S):
 
 
 def phase_main_path(device, record):
-    import torch
     from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
     from wasm_pathtracer_tpu_torch.models import scenes
     from wasm_pathtracer_tpu_torch.models.camera import initial_camera
-    from wasm_pathtracer_tpu_torch.ops import integrator, scene_kernels as sk, trace
+    from wasm_pathtracer_tpu_torch.ops import integrator, trace
     h = HEADLINE
     scene = scenes.museum(device)
-    prep = trace.prepare(scene)
-    cam = initial_camera(0, device)
-    st = RenderSettings(render_type=RenderType.NORMAL_NEE,
-                        max_bounces=h["max_bounces"])
-    # warm-up at a fraction of the queue (allocator, library load)
-    integrator.render_queue(prep, scene, st, cam, headline_queue(device, 4 * h["B"]),
-                            h["width"], h["height"], 1, h["B"])
-    pix = headline_queue(device, h["S"])
-    torch.cuda.synchronize()
-
-    reset_counts()
-    t0 = time.perf_counter()
-    acc, cnt, cost, iters = integrator.render_queue(
-        prep, scene, st, cam, pix, h["width"], h["height"], 2, h["B"],
-        return_iters=True)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = read_counts()
+    st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=h["max_bounces"])
+    launches, iters, rec = run_queue("main path: museum", integrator.render_queue,
+                                     trace.prepare(scene), scene, st,
+                                     initial_camera(0, device), h, device)
     expect_launches(launches, iters, ("fused_nearest", "fused_occluded"))
-
-    total = int(cnt.sum())
-    finite = bool(torch.isfinite(acc).all())
-    pps = h["S"] / dt
-    log(f"main path: museum {h['width']}x{h['height']} NEE {h['max_bounces']} "
-        f"bounces, S={h['S']} B={h['B']}: {dt:.3f} s, {pps:.1f} paths/s, "
-        f"{iters} iterations, launches {launches}, samples {total}, "
-        f"mean radiance {acc.sum(0).div(h['S']).tolist()}, "
-        f"prim tests/path {int(cost.sum()) / h['S']:.1f}")
-    if total != h["S"]:
-        raise AssertionError(f"counts sum to {total}, expected {h['S']}")
-    if not finite:
-        raise AssertionError("non-finite radiance")
     for name in ("fused_nearest", "fused_occluded"):
         record.setdefault(name, {})["launches"] = launches[name]
-    record["main_path"] = dict(paths_per_sec=pps, seconds=dt, iterations=iters)
+    record["main_path"] = rec
 
 
 def phase_gpu_vs_cpu(device, record):
@@ -490,21 +670,21 @@ def png_pixels(path) -> np.ndarray:
     return raw[:, 1:].reshape(h, w, 3)
 
 
-def cli_render(scene_id: int):
+def cli_render(scene_id: int, extra=("--ticks", "65536")):
     """Render ``scene_id`` at 512x512 through the CLI in a process of its
-    own and check the PNG is not black."""
+    own, with the ``extra`` arguments, and check the PNG is not black."""
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, f"scene{scene_id}.png")
         cmd = [sys.executable, "-m", "wasm_pathtracer_tpu_torch.runtime.cli",
                "--scene", str(scene_id), "--width", "512", "--height", "512",
-               "--ticks", "65536", "--out", out]
+               *extra, "--out", out]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
                               cwd=os.path.dirname(os.path.abspath(__file__)))
         if proc.returncode != 0:
             raise AssertionError(f"CLI failed ({proc.returncode}): {proc.stderr[-2000:]}")
         img = png_pixels(out)
-        log(f"CLI scene {scene_id}: {img.shape} PNG in {time.perf_counter() - t0:.1f} s, "
+        log(f"CLI scene {scene_id} {' '.join(extra)}: {img.shape} PNG in {time.perf_counter() - t0:.1f} s, "
             f"mean {img.mean():.2f}, non-zero pixels {(img.max(-1) > 0).mean():.3f}")
         if img.shape != (512, 512, 3) or img.max() == 0:
             raise AssertionError("CLI wrote a black or misshapen PNG")
@@ -609,8 +789,32 @@ def check_probe(cs, o, d, cidx, out_k, out_p, what):
     return worst, idx.numel(), fin_p.float().mean().item()
 
 
+def check_probe_blocks(cs, o, d, cidx, what):
+    """Hold K7's (R, G) distances against its plain version's: finiteness
+    equal on > 99.9% of the entries, values within rtol 1e-5 / atol 1e-5
+    where both are finite, and the minimum over G equal to K5's t on the
+    same inputs (K5's torus skip is exact, so the two agree bit for bit).
+    Returns max |dt|."""
+    import torch
+    from wasm_pathtracer_tpu_torch.ops import probe_kernels as pk
+    t_k = pk.probe_blocks(cs, o, d, cidx)
+    t_p = pk.probe_blocks_reference(cs, o, d, cidx)
+    t5 = pk.probe_min(cs, o, d, cidx)[0]
+    torch.cuda.synchronize()
+    fin_k, fin_p = torch.isfinite(t_k), torch.isfinite(t_p)
+    both = fin_k & fin_p
+    agree = (fin_k == fin_p).float().mean().item()
+    if t_k.shape != (o.shape[0], cs.group) or not (
+            agree > 0.999 and torch.allclose(t_k[both], t_p[both], rtol=1e-5, atol=1e-5)):
+        raise AssertionError(f"{what}: distances disagree (finiteness agreement "
+                             f"{agree:.6f})")
+    if not torch.equal(t_k.amin(dim=1), t5):
+        raise AssertionError(f"{what}: min over the slots differs from K5's t")
+    return (t_k[both] - t_p[both]).abs().max().item() if both.any() else 0.0
+
+
 def phase_cluster_kernels(device, record):
-    """K3-K6 against their plain versions on three cluster sets."""
+    """K3-K7 against their plain versions on three cluster sets."""
     import torch
     from wasm_pathtracer_tpu_torch.models import scenes
     from wasm_pathtracer_tpu_torch.models.camera import initial_camera
@@ -622,7 +826,7 @@ def phase_cluster_kernels(device, record):
                           initial_camera(5, device)),
             "museum_clustered": (museum_clustered(device)[1], initial_camera(0, device))}
     errs = {name: 0.0 for name in ("select_scan", "probe_pair", "probe_min",
-                                   "select_blocks")}
+                                   "select_blocks", "probe_blocks")}
     for i, (name, (prep, cam)) in enumerate(sets.items()):
         cs = prep.cluster
         o, d = test_rays(16_384 + 37, 400 + i, device, cam)
@@ -668,7 +872,9 @@ def phase_cluster_kernels(device, record):
         err, ties, _ = check_probe(cs, o, d, c1, pk.probe_min(cs, o, d, c1), pair_p[:2],
                                    f"K5 {name}")
         errs["probe_min"] = max(errs["probe_min"], err)
-        log(msg + f"; K5 max |dt| {err:.3g}, {ties} ties")
+        err7 = check_probe_blocks(cs, o, d, c1, f"K7 {name}")
+        errs["probe_blocks"] = max(errs["probe_blocks"], err7)
+        log(msg + f"; K5 max |dt| {err:.3g}, {ties} ties; K7 max |dt| {err7:.3g}")
         if name == "museum_clustered":
             continue
 
@@ -680,7 +886,9 @@ def phase_cluster_kernels(device, record):
                  "probe_pair": (lambda: pk.probe_pair(cs, o16, d16, a, b),
                                 lambda: pk.probe_pair_reference(cs, o16, d16, a, b)),
                  "probe_min": (lambda: pk.probe_min(cs, o16, d16, a),
-                               lambda: pk.probe_min_reference(cs, o16, d16, a))}
+                               lambda: pk.probe_min_reference(cs, o16, d16, a)),
+                 "probe_blocks": (lambda: pk.probe_blocks(cs, o16, d16, a),
+                                  lambda: pk.probe_blocks_reference(cs, o16, d16, a))}
         if pk.dense_scan_ok(prep):
             calls["select_scan"] = (
                 lambda: pk.select_scan(cs, prep, o16, d16, se, sc),
@@ -690,52 +898,90 @@ def phase_cluster_kernels(device, record):
         log(f"{name} B=16384 device ms (kernel, plain): " + ", ".join(
             f"{k} {ms:.4f} / {pms:.4f}" for k, (ms, pms) in times.items()))
         if name == "mesh70k":
+            C, G, B = cs.num_clusters, cs.group, 16_384
+            slab = B * C * FLOPS["box"]
+            rays, boxes, table = B * 24, 4 * 6 * C, 4 * cs.table.numel()
+            probe = probe_flops(cs, a)
+            bounds = {
+                "select_blocks": bound(slab, rays + B * 8 + boxes + B * 20),
+                "select_scan": bound(slab + scene_flops(prep.tables, o16, d16),
+                                     rays + B * 8 + boxes + 4 * prep.tables.flat.numel()
+                                     + B * 28),
+                "probe_pair": bound(probe + probe_flops(cs, b), rays + B * 8 + table + B * 16),
+                "probe_min": bound(probe, rays + B * 4 + table + B * 8),
+                "probe_blocks": bound(probe, rays + B * 4 + table + B * G * 4)}
             for k, (ms, pms) in times.items():
-                record.setdefault(k, {}).update(ms=ms, plain_ms=pms)
+                record.setdefault(k, {}).update(ms=ms, plain_ms=pms, bound_ms=bounds[k][0],
+                                                bound_by=bounds[k][1])
+            log("mesh70k bounds: " + ", ".join(f"{k} {v[0]:.5f} ms by {v[1]}"
+                                               for k, v in bounds.items()))
     for k, err in errs.items():
         record.setdefault(k, {})["max_abs_err"] = err
 
 
-def phase_mesh_path(device, record):
+def phase_kernel_k8(device, record):
+    """K8 against its plain version: mesh70k's 70,314 triangles and
+    cloud300k's, 16,384 + 37 camera and random rays each.  Hits agree on
+    > 99.9% of rays, t within rtol 1e-5 / atol 1e-5 where both hit, slots
+    on > 99% (the rule of the JAX package's ``tests/test_pallas_dense.py``:
+    the kernel's rsqrt is approximate and nvcc contracts to FMA), a miss
+    reads slot -1.  Device times at 16,384 rays on mesh70k."""
     import torch
+    from wasm_pathtracer_tpu_torch.models import scenes
+    from wasm_pathtracer_tpu_torch.models.camera import initial_camera
+    from wasm_pathtracer_tpu_torch.ops import trace
+    from wasm_pathtracer_tpu_torch.ops import traverse_kernels as tk
+    sets = {"mesh70k": (scenes.mesh_scene(scenes.surface_mesh(188), device),
+                        mesh_camera(device)),
+            "cloud300k": (scenes.cloud(300_000, device=device), initial_camera(5, device))}
+    worst = 0.0
+    for i, (name, (scene, cam)) in enumerate(sets.items()):
+        rows = trace.prepare(scene, use_pallas=True).tri_rows
+        o, d = test_rays(16_384 + 37, 500 + i, device, cam)
+        t_k, s_k = tk.dense_tri_nearest(rows, o, d)
+        t_p, s_p = tk.dense_tri_nearest_reference(rows, o, d)
+        torch.cuda.synchronize()
+        hit_k, hit_p = torch.isfinite(t_k), torch.isfinite(t_p)
+        both = hit_k & hit_p
+        hit_agree = (hit_k == hit_p).float().mean().item()
+        err = (t_k[both] - t_p[both]).abs().max().item() if both.any() else 0.0
+        slot_agree = (s_k == s_p)[both].float().mean().item() if both.any() else 1.0
+        log(f"K8 {name}: T={rows.shape[0]}, hit agreement {hit_agree:.6f}, max |dt| "
+            f"{err:.3g}, slot agreement {slot_agree:.6f}, hit rate "
+            f"{hit_p.float().mean().item():.3f}")
+        if not (hit_agree > 0.999 and slot_agree > 0.99
+                and torch.allclose(t_k[both], t_p[both], rtol=1e-5, atol=1e-5)
+                and bool((s_k[~hit_k] == -1).all())
+                and bool(((s_k[hit_k] >= 0) & (s_k[hit_k] < rows.shape[0])).all())):
+            raise AssertionError(f"K8 disagrees with its plain version on {name}")
+        worst = max(worst, err)
+        if name == "mesh70k":
+            o16, d16 = o[:16_384].contiguous(), d[:16_384].contiguous()
+            ms = cuda_ms(lambda: tk.dense_tri_nearest(rows, o16, d16), 5)
+            plain_ms = cuda_ms(lambda: tk.dense_tri_nearest_reference(rows, o16, d16), 1)
+            b_ms, b_by = bound(16_384 * rows.shape[0] * FLOPS["sweep"],
+                               4 * rows.numel() + 16_384 * (24 + 8))
+            log(f"K8 mesh70k B=16384: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {b_ms:.4f} ms by {b_by}")
+            record.setdefault("dense_tri_nearest", {}).update(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    record["dense_tri_nearest"]["max_abs_err"] = worst
+
+
+def phase_mesh_path(device, record):
     from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
     from wasm_pathtracer_tpu_torch.ops import wavefront
     h = MESH
     scene, prep = mesh70k(device)
-    cam = mesh_camera(device)
-    st = RenderSettings(render_type=RenderType.NORMAL_NEE,
-                        max_bounces=h["max_bounces"])
-    wavefront.render_queue_flat(prep, scene, st, cam, headline_queue(device, 4 * h["B"]),
-                                h["width"], h["height"], 1, h["B"])
-    pix = headline_queue(device, h["S"])
-    torch.cuda.synchronize()
-
-    reset_counts()
-    t0 = time.perf_counter()
-    acc, cnt, cost, iters = wavefront.render_queue_flat(
-        prep, scene, st, cam, pix, h["width"], h["height"], 2, h["B"],
-        return_iters=True)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = read_counts()
+    st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=h["max_bounces"])
+    launches, iters, rec = run_queue(
+        f"mesh path: mesh70k ({scene.num_shapes} shapes, C={prep.cluster.num_clusters}, "
+        f"dense {sum(prep.tables.counts)})", wavefront.render_queue_flat, prep, scene, st,
+        mesh_camera(device), h, device)
     expect_launches(launches, iters, ("select_scan", "probe_pair"))
-
-    total = int(cnt.sum())
-    pps = h["S"] / dt
-    tests = int(cost.sum()) / h["S"]
-    log(f"mesh path: mesh70k ({scene.num_shapes} shapes, C={prep.cluster.num_clusters}, "
-        f"dense {sum(prep.tables.counts)}) {h['width']}x{h['height']} NEE "
-        f"{h['max_bounces']} bounces, S={h['S']} B={h['B']}: {dt:.3f} s, {pps:.1f} paths/s, "
-        f"{iters} iterations, launches {launches}, samples {total}, mean radiance "
-        f"{acc.sum(0).div(h['S']).tolist()}, prim tests/path {tests:.1f}; {card_line()}")
-    if total != h["S"]:
-        raise AssertionError(f"counts sum to {total}, expected {h['S']}")
-    if not bool(torch.isfinite(acc).all()):
-        raise AssertionError("non-finite radiance")
     for name in ("select_scan", "probe_pair"):
         record.setdefault(name, {})["launches"] = launches[name]
-    record["mesh_path"] = dict(paths_per_sec=pps, seconds=dt, iterations=iters,
-                               prim_tests_per_path=tests)
+    record["mesh_path"] = rec
 
 
 def agree_per_path(a, b, what):
@@ -789,6 +1035,22 @@ def phase_lockstep(device, record):
                                        SEED, 1024)
     agree_per_path((acc, cnt), flat[:2], f"lockstep vs flat mesh70k {W}x{H} 1 spp")
 
+    # the same lockstep trace probing with K7 and reducing outside the kernel
+    import dataclasses
+    prep7 = dataclasses.replace(prep, cluster=dataclasses.replace(
+        prep.cluster, unreduced_probe=True))
+    reset_counts()
+    acc7, cnt7, _, iters7 = integrator.render_queue(
+        prep7, scene, st, mesh_camera(device), pix, W, H, SEED, 1024, return_iters=True)
+    torch.cuda.synchronize()
+    launches7 = read_counts()
+    log(f"lockstep with the unreduced probe: {iters7} iterations, launches {launches7}")
+    expect_launches(launches7, iters7, at_least_once=("fused_nearest", "probe_blocks"))
+    if launches7["probe_blocks"] != launches["probe_min"] or iters7 != iters:
+        raise AssertionError("the unreduced probe should run the reduced probe's rounds")
+    record.setdefault("probe_blocks", {})["launches"] = launches7["probe_blocks"]
+    agree_per_path((acc7, cnt7), (acc, cnt), f"unreduced vs reduced probe mesh70k {W}x{H}")
+
 
 def phase_k6_path(device, record):
     import torch
@@ -817,18 +1079,197 @@ def phase_k6_path(device, record):
     agree_per_path((acc, cnt), ref[:2], f"flat clustered vs dense museum {W}x{H} 1 spp")
 
 
+def phase_sweep_path(device, record):
+    import torch
+    from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+    from wasm_pathtracer_tpu_torch.models import scenes
+    from wasm_pathtracer_tpu_torch.ops import integrator, trace
+    h = MESH
+    scene = scenes.mesh_scene(scenes.surface_mesh(188), device)
+    prep = trace.prepare(scene, use_pallas=True)
+    cam = mesh_camera(device)
+    st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=h["max_bounces"])
+    launches, iters, rec = run_queue(
+        f"dense-sweep path: mesh70k ({prep.tri_rows.shape[0]} triangles swept, "
+        f"{sum(prep.tables.counts)} shapes in K1's tables)",
+        integrator.render_queue, prep, scene, st, cam, h, device)
+    expect_launches(launches, iters,
+                    twice_per_iteration=("dense_tri_nearest", "fused_nearest"))
+    record.setdefault("dense_tri_nearest", {})["launches"] = launches["dense_tri_nearest"]
+    short = headline_queue(device, 8 * h["B"])
+    rec["device_busy_share"] = busy_share(lambda: integrator.render_queue(
+        prep, scene, st, cam, short, h["width"], h["height"], 3, h["B"]))
+    log(f"dense-sweep path: device busy {100 * rec['device_busy_share']:.1f}% of wall "
+        f"time under the profiler (S={short.numel()})")
+    record["sweep_path"] = rec
+
+
+def phase_bvh4(device, record):
+    import torch
+    from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+    from wasm_pathtracer_tpu_torch.models import scenes
+    from wasm_pathtracer_tpu_torch.models.camera import primary_rays
+    from wasm_pathtracer_tpu_torch.ops import bvh, integrator, trace, traverse
+    W = H = 64
+    scene = scenes.mesh_scene(scenes.surface_mesh(188), device)
+    t0 = time.perf_counter()
+    prep_bvh = bvh.attach_bvh(trace.prepare(scene), scene)
+    t_build = time.perf_counter() - t0
+    prep_sweep = trace.prepare(scene, use_pallas=True)
+    st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=8)
+    cam = mesh_camera(device)
+    pix = torch.arange(W * H, device=device)
+    n_tri = prep_bvh.idx_triangle.shape[0]
+
+    half = torch.full((W * H,), 0.5, device=device)
+    o, d = primary_rays(cam, pix % W, pix // W, half, half, W, H)
+    no_hit = torch.full((W * H,), torch.inf, device=device)
+    t_b, sid_b, visits = traverse.trace_bvh4(
+        prep_bvh.bvh_bounds, prep_bvh.bvh_children, prep_bvh.bvh_prim_index,
+        prep_bvh.bvh_tri_rows, o, d, no_hit)
+    mean_visits = visits.float().mean().item()
+    log(f"BVH4 mesh70k: {prep_bvh.bvh_children.shape[0]} nodes built in {t_build:.2f} s, "
+        f"primary rays: mean visits {mean_visits:.1f}, max {int(visits.max())}, "
+        f"{n_tri} triangles, hit rate {(sid_b >= 0).float().mean().item():.3f}")
+    if not mean_visits < 0.01 * n_tri:
+        raise AssertionError("the BVH walk visits too many nodes")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out_b = integrator.render_queue(prep_bvh, scene, st, cam, pix, W, H, SEED, 1024,
+                                    return_iters=True)
+    torch.cuda.synchronize()
+    t_bvh = time.perf_counter() - t0
+    launches = read_counts()
+    expect_launches(launches, out_b[3], twice_per_iteration=("fused_nearest",))
+    t0 = time.perf_counter()
+    out_s = integrator.render_queue(prep_sweep, scene, st, cam, pix, W, H, SEED, 1024)
+    torch.cuda.synchronize()
+    log(f"BVH4 render {t_bvh:.2f} s ({out_b[3]} iterations), sweep render "
+        f"{time.perf_counter() - t0:.2f} s")
+    agree_per_path(out_b[:2], out_s[:2], f"BVH4 vs dense sweep mesh70k {W}x{H} 1 spp")
+
+
+def phase_pnee(device, record):
+    import torch
+    from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+    from wasm_pathtracer_tpu_torch.models import scenes
+    from wasm_pathtracer_tpu_torch.models.camera import initial_camera
+    from wasm_pathtracer_tpu_torch.ops import integrator, photon, trace
+    h = HEADLINE
+    scene = scenes.museum(device)
+    prep = trace.prepare(scene)
+    st = RenderSettings(render_type=RenderType.PNEE, max_bounces=h["max_bounces"])
+    lo, hi = photon.grid_bounds_for_scene(scene, st)
+
+    def fresh():
+        return photon.PhotonGrid.create(scene.num_lights, lo, hi, st.photon_grid_res, device)
+
+    batch = 65_536
+    photon.emit_photons(fresh(), prep, scene, st, 0, batch)       # warm-up
+    torch.cuda.synchronize()
+    grid, shots, seed = fresh(), 0, 1
+    reset_counts()
+    t0 = time.perf_counter()
+    while int(grid.num_photons) < st.total_photons and shots < 64 * batch:
+        grid = photon.emit_photons(grid, prep, scene, st, seed, batch)
+        seed += 1
+        shots += batch
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    landed = int(grid.num_photons)
+    launches = read_counts()
+    log(f"photon emission: {landed} landed of {shots} shot in {dt:.3f} s, "
+        f"{landed / dt:.1f} landed/s, {shots / dt:.1f} shot/s, launches {launches}, "
+        f"bins max {grid.bins.max().item():.3g}")
+    expect_launches(launches, shots // batch, ("fused_nearest",))
+    if landed < st.total_photons or not bool(torch.isfinite(grid.bins).all()):
+        raise AssertionError("the photon budget was not reached")
+
+    launches, iters, rec = run_queue("museum PNEE", integrator.render_queue, prep, scene,
+                                     st, initial_camera(0, device), h, device,
+                                     photon_grid=grid)
+    expect_launches(launches, iters, ("fused_nearest", "fused_occluded"))
+    rec.update(photons_landed_per_sec=landed / dt, photons_shot_per_sec=shots / dt)
+    record["pnee_path"] = rec
+
+
+def phase_adaptive(device, record):
+    import torch
+    from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+    from wasm_pathtracer_tpu_torch.runtime.session import Session
+    batch = 262_144
+    aset = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=8, adaptive=True,
+                          ray_batch_size=batch, regen_lanes=16_384,
+                          adaptive_bootstrap_spp=1)
+    sess = Session(1920, 1080, scene_id=0, left=aset, right=aset, device=device)
+    hw = 960 * 1080
+    n_boot = -(-hw // batch)                              # batches of the bootstrap
+    reset_counts()
+    t0 = time.perf_counter()
+    traced = sess.compute(2 * n_boot * batch)
+    torch.cuda.synchronize()
+    t_boot = time.perf_counter() - t0
+    cnt = sess.buffer.count
+    covered = [float(cnt[:, :960].min()), float(cnt[:, 960:].min())]
+    log(f"adaptive 1080p bootstrap: {traced} paths in {t_boot:.3f} s, "
+        f"{traced / t_boot:.1f} paths/s, min samples per pixel (left, right) {covered}")
+    if traced != 2 * n_boot * batch or min(covered) < 1:
+        raise AssertionError("the bootstrap sweep left pixels unsampled")
+    if len(np.unique(sess.density.reshape(-1, 3), axis=0)) != 1:
+        raise AssertionError("the density view should be its baseline while bootstrapping")
+
+    t0 = time.perf_counter()
+    traced = sess.compute(4 * batch)                      # two steady batches a half
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    sweeps = [int(sess.left._sweep), int(sess.right._sweep)]
+    colours = len(np.unique(sess.results(show_sampling=True).reshape(-1, 3), axis=0))
+    # the excess mass the last batch's cumulative sum ran over
+    from wasm_pathtracer_tpu_torch.ops import accum, adaptive
+    sub = accum.AccumBuffer(acc=sess.buffer.acc[:, :960], count=sess.buffer.count[:, :960])
+    excess = float((adaptive.target_spp(sub, aset.adaptive_spp_scale) - 1.0).sum())
+    log(f"adaptive 1080p steady state: {traced} paths in {dt:.3f} s, "
+        f"{traced / dt:.1f} paths/s, floor sweeps at {sweeps} of {hw}, density view "
+        f"{colours} colours, left half's excess mass {excess:.0f} (2^24 = {1 << 24}), "
+        f"launches {launches}, total samples {int(cnt.sum())}; {card_line()}")
+    if traced != 4 * batch or int(cnt.sum()) != (2 * n_boot + 4) * batch:
+        raise AssertionError("adaptive steps lost samples")
+    if colours < 16 or min(sweeps) <= (n_boot * batch) % hw:
+        raise AssertionError("the adaptive allocator did not take over")
+    if not bool(torch.isfinite(sess.buffer.acc).all()):
+        raise AssertionError("non-finite radiance")
+    expect_launches(launches, 0, at_least_once=("fused_nearest", "fused_occluded"))
+    record["adaptive_1080p"] = dict(paths_per_sec=traced / dt, seconds=dt,
+                                    bootstrap_paths_per_sec=2 * n_boot * batch / t_boot,
+                                    excess_mass=excess)
+
+
+def phase_cli_views(device, record):
+    cli_render(0, ["--ticks", "1572864", "--right-type", "2", "--right-adaptive",
+                   "--show-sampling", "--max-bounces", "8"])
+    cli_render(4, ["--debug-view", "bvh"])
+
+
 PHASES = {
     "k1": phase_kernel_k1,
     "k2": phase_kernel_k2,
     "main": phase_main_path,
     "gpu_vs_cpu": phase_gpu_vs_cpu,
     "cli": phase_cli,
+    "k8": phase_kernel_k8,
     "clusters": phase_cluster_kernels,
     "mesh": phase_mesh_path,
     "mesh_gpu_vs_cpu": phase_mesh_gpu_vs_cpu,
     "lockstep": phase_lockstep,
     "k6_path": phase_k6_path,
     "cli_cloud": phase_cli_cloud,
+    "sweep": phase_sweep_path,
+    "bvh4": phase_bvh4,
+    "pnee": phase_pnee,
+    "adaptive": phase_adaptive,
+    "cli_views": phase_cli_views,
 }
 
 
@@ -873,9 +1314,12 @@ def main(argv) -> int:
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=record[name]["launches"],
                     max_abs_err=record[name]["max_abs_err"],
-                    ms=record[name]["ms"], plain_ms=record[name]["plain_ms"])
+                    ms=record[name]["ms"], plain_ms=record[name]["plain_ms"],
+                    bound_ms=record[name]["bound_ms"], bound_by=record[name]["bound_by"],
+                    library_ms=None)
                for name, rep, src in KERNELS]
-    log(json.dumps({"main_path": record["main_path"], "mesh_path": record["mesh_path"]}))
+    log(json.dumps({k: record[k] for k in ("main_path", "mesh_path", "sweep_path",
+                                           "pnee_path", "adaptive_1080p")}))
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

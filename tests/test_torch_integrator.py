@@ -155,8 +155,22 @@ def test_render_queue_empty_and_zero_bounce():
 @pytest.mark.parametrize("kw", [dict(render_type=RenderType.PNEE),
                                 dict(edge_aware_nee=True)])
 def test_unported_estimators_raise(kw):
+    """Edge-aware NEE is not ported and raises.  PNEE is: without a
+    photon grid it renders as plain NEE, in the port as in the JAX
+    package."""
     scene = tscenes.sphere_plane()
-    with pytest.raises(NotImplementedError):
-        tint.render_queue(ttrace.prepare(scene), scene, RenderSettings(**kw),
-                          Camera.create(*CAMERAS["sphere_plane"]),
-                          torch.arange(4), 2, 2, 0, 4)
+    cam = Camera.create(*CAMERAS["sphere_plane"])
+    if "edge_aware_nee" in kw:
+        with pytest.raises(NotImplementedError):
+            tint.render_queue(ttrace.prepare(scene), scene, RenderSettings(**kw), cam,
+                              torch.arange(4), 2, 2, 0, 4)
+        return
+    W = H = 12
+    pix = np.arange(W * H, dtype=np.int32)
+    a0, c0, k0, i0 = _jax_queue("sphere_plane", int(RenderType.PNEE), pix, W, H, 7, 64, 6)
+    a1, c1, k1, i1 = _torch_queue("sphere_plane", int(RenderType.PNEE), pix, W, H, 7, 64, 6)
+    np.testing.assert_array_equal(c0, c1)
+    assert np.isclose(a1, a0, rtol=1e-3, atol=2e-3).all(-1).mean() >= 0.99
+    assert (k0, i0) == (k1, i1)
+    nee = _torch_queue("sphere_plane", int(RenderType.NORMAL_NEE), pix, W, H, 7, 64, 6)
+    np.testing.assert_array_equal(nee[0], a1)

@@ -18,9 +18,17 @@ cluster tables carried over from the JAX package by
   ray's quadratic differently from JAX's own XLA block test, which the
   port's plain version follows); shape ids equal where t is finite
   unless the two slots' distances tie within that tolerance.
+- probe_blocks (K7), the unreduced round, on the three cases of
+  ``tests/test_probe_pallas.py`` (triangles, all families, a ragged lane
+  count): finiteness equal entry by entry, distances within the same
+  tolerances.
 
 The CUDA kernels run only on a GPU; ``test_cuda_kernel_matches_plain_on
-_gpu`` holds each against its plain version there and skips here.
+_gpu`` holds each against its plain version there and skips here.  Its
+scenes hold spheres and tori, so distances take the mixed-family
+tolerance there too (nvcc contracts the sphere quadratic and the torus
+march to FMA, the plain version rounds each product: up to 4e-5
+relative on an NVIDIA H100).
 """
 
 import numpy as np
@@ -249,6 +257,67 @@ def test_probe_min_matches_pallas(name, stream):
     _assert_probe_close(cs, o, d, cidx, (jnp.min(t_blk, axis=1), sid), out, TOL)
 
 
+# the three cases of tests/test_probe_pallas.py: (scene keywords, rays)
+K7_CASES = {
+    "triangles": (dict(n_tri=300, n_sphere=0, n_torus=0, n_aarect=0, n_square=0), 128),
+    "all_families": (dict(), 128),
+    "ragged_lanes": (dict(n_tri=150, n_sphere=40, n_torus=0, n_aarect=0, n_square=0), 101),
+}
+
+
+@pytest.mark.parametrize("case", list(K7_CASES))
+def test_probe_blocks_matches_pallas(case):
+    kw, n = K7_CASES[case]
+    j = _mixed(**kw)
+    pj = jbvh.attach_clusters(jtrace.prepare(j), j, group=128, min_count=32)
+    cj = pj.cluster
+    cs = tcl.cluster_from_numpy({k: np.asarray(getattr(cj, k)) for k in tcl.ARRAY_FIELDS},
+                                cj.families)
+    o, d = _rays(n, seed=1)
+    # three rays of four probe the cluster they enter first, so that slots hit
+    fresh = (torch.full((n,), -torch.inf), torch.full((n,), -1, dtype=torch.int32))
+    sel = pk.select_blocks_reference(cs, torch.from_numpy(o), torch.from_numpy(d), *fresh)
+    cidx = np.where(np.arange(n) % 4 == 3, np.arange(n) * 13 % cs.num_clusters,
+                    sel[1].numpy()).astype(np.int32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jpp.probe_blocks(cj, jpp.pack_table(cj), jnp.asarray(o),
+                                          jnp.asarray(d), jnp.asarray(cidx)))
+    out = pk.probe_blocks(cs, torch.from_numpy(o), torch.from_numpy(d),
+                          torch.from_numpy(cidx))
+    assert out.shape == (n, cs.group) and out.dtype == torch.float32
+    out = out.numpy()
+    fin = np.isfinite(ref)
+    np.testing.assert_array_equal(np.isfinite(out), fin)
+    tol = PROBE_TOL["mesh" if case == "triangles" else "mixed"]
+    np.testing.assert_allclose(out[fin], ref[fin], rtol=tol, atol=tol)
+    assert fin.sum() >= 10
+    # the reduced round is the first minimum of the unreduced one
+    t_min, _ = pk.probe_min(cs, torch.from_numpy(o), torch.from_numpy(d),
+                            torch.from_numpy(cidx))
+    np.testing.assert_array_equal(t_min.numpy(), out.min(axis=1))
+
+
+def test_lockstep_trace_with_unreduced_probe_equals_reduced():
+    """``trace_clusters`` with ``unreduced_probe`` (K7's distances and the
+    first minimum taken outside) returns what the reduced probe (K5)
+    returns, bit for bit, and the JAX lockstep trace's hits."""
+    import dataclasses
+    j, pj, pt = _case("mixed")
+    o, d = _rays(96, seed=13)
+    t_init = torch.full((96,), torch.inf)
+    ref = tcl.trace_clusters(pt.cluster, torch.from_numpy(o), torch.from_numpy(d), t_init)
+    cs7 = dataclasses.replace(pt.cluster, unreduced_probe=True)
+    out = tcl.trace_clusters(cs7, torch.from_numpy(o), torch.from_numpy(d), t_init)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    t0, slot0, rounds0 = jcl.trace_clusters(pj.cluster, jnp.asarray(o), jnp.asarray(d),
+                                            jnp.full((96,), jnp.inf))
+    np.testing.assert_array_equal(out[2].numpy(), np.asarray(rounds0))
+    hit = np.asarray(slot0) >= 0
+    np.testing.assert_array_equal(out[1].numpy() >= 0, hit)
+    np.testing.assert_allclose(out[0].numpy()[hit], np.asarray(t0)[hit], rtol=1e-4, atol=1e-4)
+    assert hit.sum() > 10
+
+
 def test_probe_clamps_cluster_ids():
     """Out-of-range cluster ids (an exhausted lane's) are clamped into
     [0, C), as the TPU wrappers clamp them."""
@@ -284,7 +353,7 @@ def cuda_device():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["select_blocks", "select_scan", "probe_pair",
-                                    "probe_min"])
+                                    "probe_min", "probe_blocks"])
 def test_cuda_kernel_matches_plain_on_gpu(cuda_device, kernel):
     _, _, prep = _case("mixed_dense" if kernel == "select_scan" else "mixed", cuda_device)
     cs = prep.cluster
@@ -305,10 +374,20 @@ def test_cuda_kernel_matches_plain_on_gpu(cuda_device, kernel):
             hit = torch.isfinite(ref[5])
             assert (torch.isfinite(out[5]) == hit).float().mean() > 0.999
             both = hit & torch.isfinite(out[5])
-            torch.testing.assert_close(out[5][both], ref[5][both], rtol=TOL, atol=1e-4)
+            torch.testing.assert_close(out[5][both], ref[5][both], rtol=PROBE_TOL["mixed"],
+                                       atol=PROBE_TOL["mixed"])
         return
     c1 = (torch.arange(n, device=cuda_device, dtype=torch.int32) * 13) % cs.num_clusters
     c2 = (c1 * 7 + 3) % cs.num_clusters
+    if kernel == "probe_blocks":
+        t_k, t_p = pk.probe_blocks(cs, o, d, c1), pk.probe_blocks_reference(cs, o, d, c1)
+        fin = torch.isfinite(t_p)
+        assert (torch.isfinite(t_k) == fin).float().mean() > 0.999
+        both = fin & torch.isfinite(t_k)
+        torch.testing.assert_close(t_k[both], t_p[both], rtol=PROBE_TOL["mixed"],
+                                   atol=PROBE_TOL["mixed"])
+        assert torch.equal(t_k.amin(dim=1), pk.probe_min(cs, o, d, c1)[0])
+        return
     args = (cs, o, d, c1, c2) if kernel == "probe_pair" else (cs, o, d, c1)
     out = getattr(pk, kernel)(*args)
     ref = getattr(pk, kernel + "_reference")(*args)
@@ -316,5 +395,6 @@ def test_cuda_kernel_matches_plain_on_gpu(cuda_device, kernel):
         fin = torch.isfinite(t_p)
         assert (torch.isfinite(t_k) == fin).float().mean() > 0.999
         both = fin & torch.isfinite(t_k)
-        torch.testing.assert_close(t_k[both], t_p[both], rtol=TOL, atol=TOL)
+        torch.testing.assert_close(t_k[both], t_p[both], rtol=PROBE_TOL["mixed"],
+                                   atol=PROBE_TOL["mixed"])
         assert (s_k == s_p)[both].float().mean() > 0.995

@@ -84,8 +84,23 @@ def test_session_reset_and_camera_update():
 @pytest.mark.parametrize("kw", [dict(render_type=RenderType.PNEE),
                                 dict(adaptive=True)])
 def test_session_rejects_unported_settings(kw):
-    with pytest.raises(NotImplementedError):
-        Session(32, 32, scene_id=100, left=RenderSettings(**kw), device="cpu")
+    """PNEE and adaptive sampling are ported: a session with either on
+    its left half renders as the JAX session does (counts equal, per-pixel
+    sums by the per-path rule)."""
+    kw = dict(kw, max_bounces=4, ray_batch_size=1024, regen_lanes=256,
+              total_photons=2000, photon_grid_res=8)
+    jkw = dict(kw, render_type=JType(int(kw.get("render_type", RenderType.NORMAL_NEE))))
+    j = JSession(32, 32, scene_id=100, left=JSettings(**jkw),
+                 right=JSettings(render_type=JType.NO_NEE, max_bounces=4,
+                                 ray_batch_size=1024, regen_lanes=256))
+    t = Session(32, 32, scene_id=100, left=RenderSettings(**kw),
+                right=RenderSettings(render_type=RenderType.NO_NEE, max_bounces=4,
+                                     ray_batch_size=1024, regen_lanes=256), device="cpu")
+    assert j.compute(6144) == t.compute(6144) > 0
+    np.testing.assert_array_equal(np.asarray(j.buffer.count), t.buffer.count.numpy())
+    a0, a1 = np.asarray(j.buffer.acc), t.buffer.acc.numpy()
+    assert np.isclose(a1, a0, rtol=1e-3, atol=2e-3).all(-1).mean() >= 0.99
+    assert t.buffer.count[:, :16].sum() > 0 and j.num_bvh_hits == t.num_bvh_hits
 
 
 def test_session_rejects_mesh_scenes_and_upload():

@@ -5,9 +5,9 @@ The JAX package's ``config`` module is itself free of JAX, but the port
 must run where no file of the JAX package is importable, so it carries
 its own copy.  Names, defaults and enum values are the JAX package's,
 so the same settings describe the same render in both packages.  The
-fields of paths not ported yet (photon NEE, adaptive sampling,
-edge-aware NEE) are kept only so that asking for them raises
-``NotImplementedError`` instead of rendering something else.
+field of the one path not ported yet (edge-aware NEE) is kept only so
+that asking for it raises ``NotImplementedError`` instead of rendering
+something else.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ class RenderType(enum.IntEnum):
 
     NO_NEE = 0      # brute-force path tracing, light found by BSDF sampling
     NORMAL_NEE = 1  # next-event estimation with uniform light selection
-    PNEE = 2        # photon-guided NEE (not ported yet)
+    PNEE = 2        # photon-guided NEE (grid CDF light selection)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,9 +36,24 @@ class RenderSettings:
     # Russian roulette keep-chance clamp
     rr_clamp_min: float = 0.1
     rr_clamp_max: float = 0.9
-    # not ported yet: asking for them raises
+    # not ported yet: asking for it raises
     edge_aware_nee: bool = False
+    # photon preprocess budget of a PNEE instance, and how many photons
+    # one compute tick buys
+    total_photons: int = 300_000
+    photons_per_tick: int = 32
+    # cells per axis of the photon grid
+    photon_grid_res: int = 32
+    # the grid spans the scene's padded finite AABB, or with
+    # photon_grid_fit_scene off the fixed +-photon_world_size box
+    photon_world_size: float = 1024.0
+    photon_grid_fit_scene: bool = True
+    # variance-guided pixel allocation; the first rounds are a uniform
+    # sweep until every pixel has adaptive_bootstrap_spp samples, then
+    # each pixel's weight is ceil(1 + scaled_error * adaptive_spp_scale)
     adaptive: bool = False
+    adaptive_bootstrap_spp: int = 4
+    adaptive_spp_scale: float = 32.0
     # virtual screen plane at z = +0.8 in camera space
     screen_z: float = 0.8
     # paths per session step (the session's pixel queue length)
@@ -54,6 +69,9 @@ class RenderSettings:
     # flattened cluster traversal (ops.wavefront.render_queue_flat);
     # None = auto: whenever the scene has a cluster structure
     use_flat_wavefront: bool | None = None
+    # light-selection debug render: NEE adds the sampled light's
+    # unshadowed, unweighted intensity
+    is_debug_photons: bool = False
 
     def replace(self, **kw) -> "RenderSettings":
         return dataclasses.replace(self, **kw)

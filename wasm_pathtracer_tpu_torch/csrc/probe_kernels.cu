@@ -1,10 +1,11 @@
-// Cluster select (K3, K6) and probe (K4, K5) kernels for Hopper.
+// Cluster select (K3, K6) and probe (K4, K5, K7) kernels for Hopper.
 //
 // Replace the Pallas TPU kernels of wasm_pathtracer_tpu/ops/probe_pallas.py:
 //   wpt_select_scan  <- select_scan      (_make_select_scan_kernel)   K3
 //   wpt_select       <- select_blocks    (_make_select_kernel)        K6
 //   wpt_probe        <- probe_pair_raw   (_make_pair_kernel, 2 rounds) K4
 //                    <- probe_blocks_min (_make_min_kernel, 1 round)   K5
+//   wpt_probe_blocks <- probe_blocks     (_make_kernel, unreduced)     K7
 //
 // Select (K3/K6), one thread per ray.  Every ray runs the slab test
 // against all C cluster boxes and keeps, after its lex cursor
@@ -32,6 +33,14 @@
 // normal's inverse length, without an n.d != 0 mask).  A lane skips a
 // torus whose box entry is beyond its best hit so far (exact: a torus hit
 // is >= that entry).
+//
+// Unreduced probe (K7): the same kernel body compiled with STORE_ALL, so
+// the per-family tests are shared.  Each lane stores the distance of
+// every slot it tests into a (R, G) matrix (+inf on a miss or a padding
+// slot) instead of reducing; a warp's 32 stores are one 128-byte row
+// segment.  There is no running best, so no torus is skipped: every slot
+// reads the distance the TPU kernel gives it.  What bounds it: the same
+// table loads plus the G x 4 bytes written per ray.
 //
 // Output contract: (t, sid) per round, t = +inf and sid = -1 on a miss.
 // The TPU kernels also returned the winner's table row so that shading
@@ -149,6 +158,7 @@ __device__ __forceinline__ float slot_distance(int type, const float* p,
   }
 }
 
+template <bool STORE_ALL>
 __global__ void __launch_bounds__(PROBE_BLOCK)
 probe_kernel(const float* __restrict__ table, int C, int G,
              const float* __restrict__ o, const float* __restrict__ d,
@@ -169,7 +179,11 @@ probe_kernel(const float* __restrict__ table, int C, int G,
       float p[9];
 #pragma unroll
       for (int q = 0; q < 9; ++q) p[q] = tab[q * G + s];
-      const float t = slot_distance(type, p, r, bt);
+      const float t = slot_distance(type, p, r, STORE_ALL ? INFINITY : bt);
+      if (STORE_ALL) {   // K7: t_out is the (R, G) distance matrix
+        t_out[static_cast<size_t>(ray) * G + s] = t;
+        continue;
+      }
       if (t < bt) {   // ascending slots: strict < keeps the first minimum
         bt = t;
         bs = s;
@@ -184,7 +198,7 @@ probe_kernel(const float* __restrict__ table, int C, int G,
         bs = os;
       }
     }
-    if (lane == 0) {
+    if (!STORE_ALL && lane == 0) {
       t_out[k * n_rays + ray] = bt;
       sid_out[k * n_rays + ray] =
           bt < INFINITY ? static_cast<int>(tab[10 * G + bs]) : -1;
@@ -256,8 +270,23 @@ int wpt_probe(const float* table, int C, int G, const float* o, const float* d,
   if (n_rays <= 0 || n_rounds <= 0) return 0;
   const long long threads = 32LL * n_rays;
   const int blocks = static_cast<int>((threads + PROBE_BLOCK - 1) / PROBE_BLOCK);
-  probe_kernel<<<blocks, PROBE_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+  probe_kernel<false><<<blocks, PROBE_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
       table, C, G, o, d, cidx, n_rounds, n_rays, t_out, sid_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7.  table (C, 11, G) f32; cidx (R,) i32; dist_out (R, G) f32: the
+// distance of every slot of the ray's cluster, +inf on a miss or padding.
+int wpt_probe_blocks(const float* table, int C, int G, const float* o,
+                     const float* d, const int* cidx, int n_rays,
+                     float* dist_out, void* stream) {
+  using namespace wpt;
+  cudaGetLastError();
+  if (n_rays <= 0) return 0;
+  const long long threads = 32LL * n_rays;
+  const int blocks = static_cast<int>((threads + PROBE_BLOCK - 1) / PROBE_BLOCK);
+  probe_kernel<true><<<blocks, PROBE_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      table, C, G, o, d, cidx, 1, n_rays, dist_out, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 

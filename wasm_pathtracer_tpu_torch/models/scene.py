@@ -134,6 +134,41 @@ def scene_from_numpy(arrays: dict, num_inf: int, num_shapes: int,
                      num_lights=int(num_lights), num_plights=int(num_plights))
 
 
+def finite_aabb(scene: SceneData) -> tuple[np.ndarray, np.ndarray]:
+    """World AABB over the finite shapes (host side; the photon grid's
+    extent).  Triangles are padded by 0.1 * EPSILON; a scene without
+    finite shapes reads the unit box."""
+    p = scene.params.cpu().numpy()[scene.num_inf:scene.num_shapes]
+    pt = scene.ptype.cpu().numpy()[scene.num_inf:scene.num_shapes]
+    lo = np.full(3, np.inf, np.float32)
+    hi = np.full(3, -np.inf, np.float32)
+
+    def fold(m, bmin, bmax):
+        nonlocal lo, hi
+        if m.any():
+            lo = np.minimum(lo, bmin.min(0))
+            hi = np.maximum(hi, bmax.max(0))
+
+    m = pt == int(PrimType.SPHERE)
+    fold(m, p[m, :3] - p[m, 3:4], p[m, :3] + p[m, 3:4])
+    m = pt == int(PrimType.TRIANGLE)
+    v = p[m, :9].reshape(-1, 3, 3)
+    pad = np.float32(0.1 * 2e-4)
+    fold(m, v.min(1) - pad, v.max(1) + pad)
+    m = pt == int(PrimType.TORUS)
+    r = p[m, 3] + p[m, 4]
+    ext = np.stack([r, p[m, 4], r], axis=-1)
+    fold(m, p[m, :3] - ext, p[m, :3] + ext)
+    m = pt == int(PrimType.AARECT)
+    fold(m, p[m, 0:3], p[m, 3:6])
+    m = pt == int(PrimType.SQUARE)
+    half = np.stack([p[m, 3] / 2, np.zeros_like(p[m, 3]), p[m, 3] / 2], axis=-1)
+    fold(m, p[m, :3] - half, p[m, :3] + half)
+    if not np.all(np.isfinite(lo)):
+        return np.full(3, -1.0, np.float32), np.full(3, 1.0, np.float32)
+    return lo, hi
+
+
 class SceneBuilder:
     """Host-side (NumPy) scene assembly: collect shapes, register
     emissive shapes as area lights, order infinite shapes first."""

@@ -37,6 +37,10 @@ _SIGNATURES = {
                        + [_P, _P, _P, _P],
     # table, C, G, o, d, cidx, n_rounds, R, t_out, sid_out, stream
     "wpt_probe": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],
+    # table, C, G, o, d, cidx, R, dist_out, stream
+    "wpt_probe_blocks": [_P, _I, _I, _P, _P, _P, _I, _P, _P],
+    # tris, T, o, d, R, packed scratch, t_out, slot_out, stream
+    "wpt_dense_tri_nearest": [_P, _I, _P, _P, _I, _P, _P, _P, _P],
 }
 
 

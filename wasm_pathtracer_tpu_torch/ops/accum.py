@@ -55,3 +55,26 @@ def mean_image(buf: AccumBuffer) -> torch.Tensor:
 def clamped_image(buf: AccumBuffer) -> torch.Tensor:
     """Mean radiance clamped to [0, 1]."""
     return torch.clamp(mean_image(buf), 0.0, 1.0)
+
+
+def mix_color(v):
+    """Sampling-density false colour: green below average, blue at
+    average (0.5), red above.  ``v`` (...) -> (..., 3)."""
+    v = torch.clamp(v, 0.0, 1.0)[..., None]
+    green = torch.tensor([0.0, 1.0, 0.0], device=v.device)
+    blue = torch.tensor([0.0, 0.0, 1.0], device=v.device)
+    red = torch.tensor([1.0, 0.0, 0.0], device=v.device)
+    lo = green * (1.0 - 2.0 * v) + blue * (2.0 * v)
+    hi = blue * (1.0 - 2.0 * (v - 0.5)) + red * (2.0 * (v - 0.5))
+    return torch.where(v < 0.5, lo, hi)
+
+
+def depth_image(t, max_t=None):
+    """White-near / black-far tone mapping of hit distances for the depth
+    debug view; a miss (+inf) reads black."""
+    finite = torch.isfinite(t)
+    if max_t is None:
+        max_t = torch.where(finite, t, 0.0).max() + 1e-6
+    g = torch.clamp(1.0 - t / max_t, 0.0, 1.0)
+    g = torch.where(finite, g, 0.0)
+    return torch.stack([g, g, g], dim=-1)

@@ -51,6 +51,10 @@ class ClusterSet:
     families: tuple            # PrimType codes present, ascending
     table: torch.Tensor        # (C, 11, G) f32, see above
     aabbs: torch.Tensor        # (6, C) f32, see above
+    # the lockstep trace probes with the unreduced kernel and takes the
+    # first minimum outside it (the form of the JAX lockstep trace); set
+    # with dataclasses.replace
+    unreduced_probe: bool = False
 
     @property
     def num_clusters(self) -> int:
@@ -243,8 +247,11 @@ def _block_test(o, d, block, btype, families):
 def trace_clusters(cs: ClusterSet, o, d, t_init):
     """Nearest hit through the cluster structure, all rays in lockstep:
     each round, every ray whose nearest unprobed cluster enters before
-    its best hit probes that cluster (``probe_kernels.probe_min``), then
-    retires it.  The loop polls on the host once per round.
+    its best hit probes that cluster, then retires it.  A round is
+    ``probe_kernels.probe_min``, or with ``cs.unreduced_probe`` the JAX
+    lockstep trace's own form: the (R, G) distances of
+    ``probe_kernels.probe_blocks`` and their first minimum taken here.
+    The loop polls on the host once per round.
 
     Returns (t, shape_id, rounds): the best hit if nearer than
     ``t_init`` (t_init and -1 otherwise) and the per-ray probe count.
@@ -265,7 +272,13 @@ def trace_clusters(cs: ClusterSet, o, d, t_init):
         if not bool(active.any()):
             break
         rounds += active
-        tloc, sid_loc = probe_kernels.probe_min(cs, o, d, c.to(torch.int32))
+        if cs.unreduced_probe:
+            t = probe_kernels.probe_blocks(cs, o, d, c.to(torch.int32))
+            tloc, j = torch.min(t, dim=1)                 # first minimum
+            sid_loc = cs.slot_to_sid.view(cs.num_clusters, cs.group)[c, j]
+            sid_loc = torch.where(torch.isfinite(tloc), sid_loc, -1)
+        else:
+            tloc, sid_loc = probe_kernels.probe_min(cs, o, d, c.to(torch.int32))
         better = active & (tloc < t_best)
         t_best = torch.where(better, tloc, t_best)
         sid_best = torch.where(better, sid_loc, sid_best)

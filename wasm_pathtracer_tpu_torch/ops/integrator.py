@@ -5,7 +5,9 @@ The estimator is the JAX package's, step for step: emissive hits add
 bounce; cosine-weighted hemisphere sampling; area-light NEE with the
 solid-angle estimator; Russian roulette on the clamped max throughput;
 a miss adds ``throughput * background``.  REFLECT / REFRACT materials
-are masked branches of the same step.
+are masked branches of the same step.  With ``RenderType.PNEE`` and a
+photon grid (``ops.photon``) the NEE light is drawn from the grid's
+per-cell histogram instead of uniformly.
 
 Randomness is counter-based: every draw is ``uniform3(seed, ray_id,
 slot)`` with one slot per (bounce, purpose), the JAX package's layout,
@@ -89,9 +91,6 @@ def _light_table(scene: SceneData):
 
 
 def _check_supported(settings: RenderSettings):
-    if settings.render_type == RenderType.PNEE:
-        raise NotImplementedError("photon-guided NEE (PNEE) comes with a later "
-                                  "slice of the port")
     if settings.edge_aware_nee:
         raise NotImplementedError("edge-aware NEE comes with the gradient "
                                   "slice of the port")
@@ -99,12 +98,14 @@ def _check_supported(settings: RenderSettings):
 
 def _shade_core(scene: SceneData, settings: RenderSettings, light_tab,
                 o, d, throughput, color, alive, hdb, absorb,
-                slot0, ray_id, seed, t, sid, hit, packed_rows=None):
+                slot0, ray_id, seed, t, sid, hit, packed_rows=None,
+                photon_grid=None):
     """Everything a bounce does after the scene trace except resolving
     the NEE occlusion query.
 
     ``slot0`` is the RNG slot base: a scalar under :func:`trace_paths`,
-    a per-lane tensor under :func:`render_queue`.
+    a per-lane tensor under :func:`render_queue`.  ``photon_grid`` guides
+    the light pick when the settings ask for PNEE.
 
     Returns ``(carry', shadow_req)``: the updated ``(o, d, throughput,
     color, alive, hdb, absorb)`` and the pending NEE query (``None``
@@ -114,6 +115,7 @@ def _shade_core(scene: SceneData, settings: RenderSettings, light_tab,
     """
     eps = settings.epsilon
     lpack, n_lights = light_tab
+    use_pnee = settings.render_type == RenderType.PNEE and photon_grid is not None
 
     shadow_req = None
     sid_c = torch.clamp(sid, min=0)
@@ -140,7 +142,8 @@ def _shade_core(scene: SceneData, settings: RenderSettings, light_tab,
 
     # --- emissive hit -----------------------------------------------------
     emis_hit = alive & hit & is_emissive
-    add_emis = emis_hit & ~hdb if settings.has_nee else emis_hit
+    add_emis = emis_hit & ~hdb if (settings.is_debug_photons or settings.has_nee) \
+        else emis_hit
     color = color + torch.where(add_emis[..., None],
                                 throughput * info["emission"], 0.0)
 
@@ -196,10 +199,16 @@ def _shade_core(scene: SceneData, settings: RenderSettings, light_tab,
 
     # --- NEE from diffuse scatters ----------------------------------------
     if settings.has_nee and scene.num_lights > 0:
-        u_pick = rnglib.uniform3(seed, ray_id, slot0 + _SLOT_LIGHT_PICK)
-        lid = torch.clamp((u_pick[0] * n_lights).to(torch.int32),
-                          max=n_lights - 1)
-        light_chance = 1.0 / n_lights
+        if use_pnee:
+            from wasm_pathtracer_tpu_torch.ops import photon as ph
+            lid, light_chance = ph.sample(photon_grid, hit_point, seed, ray_id,
+                                          slot0 + _SLOT_PNEE)
+            light_chance = torch.clamp(light_chance, min=1e-12)
+        else:
+            u_pick = rnglib.uniform3(seed, ray_id, slot0 + _SLOT_LIGHT_PICK)
+            lid = torch.clamp((u_pick[0] * n_lights).to(torch.int32),
+                              max=n_lights - 1)
+            light_chance = max(1.0 / n_lights, 1e-12)
 
         lrow = lpack[lid.long()]                      # (R, 16) — one gather
         lv = lrow[:, 0:9]
@@ -217,17 +226,21 @@ def _shade_core(scene: SceneData, settings: RenderSettings, light_tab,
         front = (cos_i_l > 0.0) & (cos_o_l > 0.0)
 
         nee_mask = diffuse_now & front
-        area = isx.triangle_area(l0, l1, l2)
-        solid_angle = area * cos_o_l / dis_sq
-        w = solid_angle * cos_i_l / max(light_chance, 1e-12)
-        w = torch.where(nee_mask, w, 0.0)
-        shadow_req = dict(
-            need=nee_mask,
-            p_from=hit_point,
-            p_to=p_l,
-            light_sid=light_sid,
-            contrib=new_tp * intensity * w[..., None],
-        )
+        if settings.is_debug_photons:
+            # light-selection debug render: the picked light, unshadowed
+            color = color + torch.where(nee_mask[..., None], new_tp * intensity, 0.0)
+        else:
+            area = isx.triangle_area(l0, l1, l2)
+            solid_angle = area * cos_o_l / dis_sq
+            w = solid_angle * cos_i_l / light_chance
+            w = torch.where(nee_mask, w, 0.0)
+            shadow_req = dict(
+                need=nee_mask,
+                p_from=hit_point,
+                p_to=p_l,
+                light_sid=light_sid,
+                contrib=new_tp * intensity * w[..., None],
+            )
 
     # --- Russian roulette --------------------------------------------------
     u_rr = rnglib.uniform3(seed, ray_id, slot0 + _SLOT_RR)[0]
@@ -258,7 +271,7 @@ def _apply_shadow(color, shadow_req, occluded):
 def _bounce_step(prep: tr.ScenePrep, scene: SceneData,
                  settings: RenderSettings, light_tab,
                  o, d, throughput, color, alive, hdb, absorb,
-                 slot0, ray_id, seed, packed_rows=None):
+                 slot0, ray_id, seed, packed_rows=None, photon_grid=None):
     """One lockstep bounce: scene trace, :func:`_shade_core`, and the NEE
     shadow ray resolved inline.  Returns the updated carry plus this
     step's per-lane primitive-test count (masked by ``alive``)."""
@@ -266,7 +279,8 @@ def _bounce_step(prep: tr.ScenePrep, scene: SceneData,
     step_cost = torch.where(alive, c, 0)
     carry, shadow_req = _shade_core(
         scene, settings, light_tab, o, d, throughput, color, alive, hdb,
-        absorb, slot0, ray_id, seed, t, sid, hit, packed_rows=packed_rows)
+        absorb, slot0, ray_id, seed, t, sid, hit, packed_rows=packed_rows,
+        photon_grid=photon_grid)
     if shadow_req is not None:
         o2, d2, tp2, color2, alive2, hdb2, absorb2 = carry
         occluded, sc = tr.shadow_ray(prep, scene, shadow_req["p_from"],
@@ -280,7 +294,7 @@ def _bounce_step(prep: tr.ScenePrep, scene: SceneData,
 
 
 def trace_paths(prep: tr.ScenePrep, scene: SceneData,
-                settings: RenderSettings, o, d, ray_id, seed):
+                settings: RenderSettings, o, d, ray_id, seed, photon_grid=None):
     """Trace a batch of paths to radiance, all lanes in lockstep; the
     batch stops once every path has terminated.
 
@@ -288,6 +302,7 @@ def trace_paths(prep: tr.ScenePrep, scene: SceneData,
       o, d: (R, 3) primary ray origins/directions.
       ray_id: (R,) integer unique path ids (pixel id is fine).
       seed: uint32 value folding session seed + sample round.
+      photon_grid: optional ``ops.photon.PhotonGrid`` for PNEE.
 
     Returns (color (R, 3), cost (R,) int64 primitive tests).
     """
@@ -308,25 +323,26 @@ def trace_paths(prep: tr.ScenePrep, scene: SceneData,
         (o, d, tp, color, alive, hdb, absorb), step_cost = _bounce_step(
             prep, scene, settings, light_tab, o, d, tp, color, alive, hdb,
             absorb, b * _SLOTS_PER_BOUNCE, ray_id, seed,
-            packed_rows=packed_rows)
+            packed_rows=packed_rows, photon_grid=photon_grid)
         cost = cost + step_cost
     return color, cost
 
 
 def render_pixels(prep, scene, settings: RenderSettings, camera: Camera,
-                  px, py, width: int, height: int, seed):
+                  px, py, width: int, height: int, seed, photon_grid=None):
     """One radiance sample for each pixel in (px, py), jittered within
     the pixel.  Returns (color (R, 3), cost (R,))."""
     ray_id = py.long() * width + px.long()
     jx, jy, _ = rnglib.uniform3(seed, ray_id, SLOT_JITTER)
     o, d = primary_rays(camera, px, py, jx, jy, width, height,
                         settings.screen_z)
-    return trace_paths(prep, scene, settings, o, d, ray_id, seed)
+    return trace_paths(prep, scene, settings, o, d, ray_id, seed,
+                       photon_grid=photon_grid)
 
 
 def render_queue(prep, scene, settings: RenderSettings, camera: Camera,
                  pix_queue, width: int, height: int, seed, n_lanes: int,
-                 rid_base=0, return_iters=False):
+                 photon_grid=None, rid_base=0, return_iters=False):
     """Persistent wavefront: path-trace every sample in ``pix_queue``.
 
     Each of ``n_lanes`` lanes owns one in-flight path; when a path
@@ -349,6 +365,7 @@ def render_queue(prep, scene, settings: RenderSettings, camera: Camera,
     Args:
       pix_queue: (S,) integer pixel ids (y * width + x).
       n_lanes: wavefront width.
+      photon_grid: optional ``ops.photon.PhotonGrid`` for PNEE.
       rid_base: offset added to the queue index when keying each path's
         RNG stream (decorrelates the session's two halves).
 
@@ -413,7 +430,7 @@ def render_queue(prep, scene, settings: RenderSettings, camera: Camera,
         (o, d, tp, col, alive, hdb, absorb), step_cost = _bounce_step(
             prep, scene, settings, light_tab, o, d, tp, col, was, hdb,
             absorb, bounce * _SLOTS_PER_BOUNCE, rid, seed,
-            packed_rows=packed_rows)
+            packed_rows=packed_rows, photon_grid=photon_grid)
         lane_cost += step_cost
         bounce = bounce + 1
 
@@ -453,3 +470,14 @@ def render_queue(prep, scene, settings: RenderSettings, camera: Camera,
         rid = torch.where(can, rid_n, rid)
         it += 1
     return _ret(it)
+
+
+def trace_depth(prep, scene, o, d):
+    """Depth render: (t, +inf on a miss; cost)."""
+    t, _, hit, cost = tr.trace_scene(prep, scene, o, d)
+    return torch.where(hit, t, torch.inf), cost
+
+
+def trace_bvh_cost(prep, scene, o, d):
+    """Cost render: primitive and node tests per primary ray."""
+    return tr.trace_scene(prep, scene, o, d)[3]

@@ -1,6 +1,6 @@
 """Cluster select and probe kernels (``wasm_pathtracer_tpu.ops.probe_pallas``).
 
-Four kernels, written in CUDA C++ for Hopper (``csrc/probe_kernels.cu``),
+Five kernels, written in CUDA C++ for Hopper (``csrc/probe_kernels.cu``),
 carry the cluster traversal:
 
 - :func:`select_blocks` (K6): per ray, the slab test against every
@@ -10,7 +10,9 @@ carry the cluster traversal:
   small dense remainder of the scene (at most :data:`MAX_DENSE` shapes);
 - :func:`probe_pair` (K4): two probe rounds, each the nearest of all G
   slots of one cluster per ray, first-minimum slot on ties;
-- :func:`probe_min` (K5): one probe round.
+- :func:`probe_min` (K5): one probe round;
+- :func:`probe_blocks` (K7): one probe round unreduced, the (R, G)
+  distances of every slot (the probe kernel compiled with a flag).
 
 Beside each is its plain PyTorch version (``*_reference``): the slab
 test and lexicographic reductions of the JAX flat wavefront, and the
@@ -75,10 +77,16 @@ def select_scan_reference(cs: cl.ClusterSet, prep, o, d, skip_e, skip_c):
         (t, torch.where(fam >= 0, sid, -1).to(torch.int32))
 
 
+def probe_blocks_reference(cs: cl.ClusterSet, o, d, cidx):
+    """Plain PyTorch version of :func:`probe_blocks`."""
+    c = torch.clamp(cidx.long(), 0, cs.num_clusters - 1)
+    return cl._block_test(o, d, cs.blocks[c], cs.btype[c], cs.families)
+
+
 def probe_min_reference(cs: cl.ClusterSet, o, d, cidx):
     """Plain PyTorch version of :func:`probe_min`."""
     c = torch.clamp(cidx.long(), 0, cs.num_clusters - 1)
-    t = cl._block_test(o, d, cs.blocks[c], cs.btype[c], cs.families)  # (R, G)
+    t = probe_blocks_reference(cs, o, d, cidx)           # (R, G)
     tmin, j = torch.min(t, dim=1)                        # first minimum
     sid = cs.slot_to_sid.view(cs.num_clusters, cs.group)[c, j]
     return tmin, torch.where(torch.isfinite(tmin), sid, -1).to(torch.int32)
@@ -186,13 +194,18 @@ def select_scan(cs: cl.ClusterSet, prep, o, d, skip_e, skip_c):
 select_scan.launches = 0
 
 
-def _probe(cs: cl.ClusterSet, o, d, cidx, name):
-    from wasm_pathtracer_tpu_torch.ops import _build
+def _check_probe(cs: cl.ClusterSet, o, d, cidx, cidx_shape):
     dev, R = _check_rays(o, d)
-    n_rounds = cidx.shape[0]
-    sk._check("cidx", cidx, (n_rounds, R), torch.int32, dev)
+    sk._check("cidx", cidx, cidx_shape + (R,), torch.int32, dev)
     C, G = cs.num_clusters, cs.group
     sk._check("cs.table", cs.table, (C, cl.TABLE_ROWS, G), torch.float32, dev)
+    return dev, R, C, G
+
+
+def _probe(cs: cl.ClusterSet, o, d, cidx, name):
+    from wasm_pathtracer_tpu_torch.ops import _build
+    n_rounds = cidx.shape[0]
+    dev, R, C, G = _check_probe(cs, o, d, cidx, (n_rounds,))
     t = torch.empty((n_rounds, R), dtype=torch.float32, device=dev)
     sid = torch.empty((n_rounds, R), dtype=torch.int32, device=dev)
     lib = _build.library()
@@ -233,3 +246,28 @@ def probe_pair(cs: cl.ClusterSet, o, d, c1, c2):
 
 
 probe_pair.launches = 0
+
+
+def probe_blocks(cs: cl.ClusterSet, o, d, cidx):
+    """One probe round without the reduction: the distance from each
+    ray to every slot of cluster ``cidx[i]`` (int32, clamped into
+    [0, C)).
+
+    Returns (R, G) float32, +inf on a miss or a padding slot.
+    """
+    if o.device.type == "cpu":
+        return probe_blocks_reference(cs, o, d, cidx)
+    from wasm_pathtracer_tpu_torch.ops import _build
+    dev, R, C, G = _check_probe(cs, o, d, cidx, ())
+    dist = torch.empty((R, G), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.wpt_probe_blocks(cs.table.data_ptr(), C, G, o.data_ptr(),
+                                  d.data_ptr(), cidx.data_ptr(), R, dist.data_ptr(),
+                                  torch.cuda.current_stream(dev).cuda_stream)
+    sk._raise_on(rc, "probe_blocks")
+    probe_blocks.launches += 1
+    return dist
+
+
+probe_blocks.launches = 0

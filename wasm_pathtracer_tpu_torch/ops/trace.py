@@ -3,11 +3,15 @@
 
 The dense families of a scene go through the whole-scene kernels of
 ``ops.scene_kernels``: :func:`trace_scene` through the nearest-hit
-kernel and :func:`shadow_ray` through the any-hit kernel.  A prep with a
-cluster structure (``ops.bvh.attach_clusters``) merges the clusters'
-nearest hit after the dense one (``ops.cluster.trace_clusters``), and
-its shadow rays are nearest-hit traces plus the occlusion comparison.
-The kernel wrappers take their plain PyTorch versions for CPU tensors.
+kernel and :func:`shadow_ray` through the any-hit kernel.  The triangle
+family has two more routes, chosen per prep: the dense sweep kernel
+(``prepare(scene, use_pallas=True)``, ``ops.traverse_kernels``) and the
+4-wide BVH walk (``ops.bvh.attach_bvh``, ``ops.traverse``).  A prep with
+a cluster structure (``ops.bvh.attach_clusters``) merges the clusters'
+nearest hit after the others (``ops.cluster.trace_clusters``).  With any
+of these three the shadow rays are nearest-hit traces plus the occlusion
+comparison.  The kernel wrappers take their plain PyTorch versions for
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -35,6 +39,15 @@ class ScenePrep:
     back to a shape id.  All are int64 except ``code_of`` (int32).
     ``cluster`` is the cluster structure over the shapes that left the
     index sets, or None.
+
+    ``use_pallas`` (the JAX package's name for the flag) sends the
+    triangle family through the dense sweep kernel, and the four
+    ``bvh_*`` tables (``ops.bvh.attach_bvh``) through the BVH walk;
+    ``use_pallas`` wins where both are set.  Either withdraws the
+    triangles from ``tables``, ``code_of`` and ``sid_of_slot`` (the JAX
+    package reaches these routes only with its fused kernel off; here
+    the scene kernels keep the five other families).  ``tri_rows`` is
+    the sweep's (T, 9) table in ``idx_triangle`` order.
     """
 
     idx_plane: torch.Tensor
@@ -48,6 +61,16 @@ class ScenePrep:
     fam_offset: torch.Tensor
     tables: scene_kernels.SceneTables
     cluster: cl.ClusterSet | None = None
+    use_pallas: bool = False
+    tri_rows: torch.Tensor | None = None
+    bvh_bounds: torch.Tensor | None = None      # (M, 4, 6) f32 child AABBs
+    bvh_children: torch.Tensor | None = None    # (M, 4) int64 (neg = leaf)
+    bvh_prim_index: torch.Tensor | None = None  # (T,) int64 leaf -> shape id
+    bvh_tri_rows: torch.Tensor | None = None    # (T, 9) f32 leaf-order verts
+
+    @property
+    def has_bvh(self) -> bool:
+        return self.bvh_bounds is not None
 
 
 # ScenePrep's index sets, in family (PrimType) order
@@ -55,42 +78,100 @@ INDEX_FIELDS = ("idx_plane", "idx_sphere", "idx_triangle", "idx_torus",
                 "idx_aarect", "idx_square")
 
 
-def prepare(scene: SceneData) -> ScenePrep:
+def prepare(scene: SceneData, use_pallas: bool = False) -> ScenePrep:
     """Host-side split of the shape table into per-family index sets.
-    Call it again after changing the scene: the tables are a copy."""
+    Call it again after changing the scene: the tables are a copy.
+    ``use_pallas`` routes the triangles through the dense sweep kernel."""
     ptype = scene.ptype.cpu().numpy()
     return prepare_from_sets(scene, [np.nonzero(ptype == int(t))[0]
-                                     for t in PrimType])
+                                     for t in PrimType], use_pallas=use_pallas)
 
 
-def prepare_from_sets(scene: SceneData, index_sets, cluster=None) -> ScenePrep:
+def prepare_from_sets(scene: SceneData, index_sets, cluster=None,
+                      use_pallas: bool = False, bvh: dict | None = None) -> ScenePrep:
     """A prep whose dense families are the six given shape-id sets (in
-    family order), with ``cluster`` attached."""
+    family order), with ``cluster`` attached.  ``bvh`` holds the arrays
+    ``bvh_bounds``, ``bvh_children``, ``bvh_prim_index`` and
+    ``bvh_tri_rows`` of a 4-wide BVH over the triangle set
+    (``ops.bvh.attach_bvh``)."""
     dev = scene.device
-    sets = [torch.as_tensor(np.asarray(s), dtype=torch.int64, device=dev)
-            for s in index_sets]
-    sizes = [int(s.shape[0]) for s in sets]
+    sets = [torch.as_tensor(s if isinstance(s, torch.Tensor) else np.asarray(s),
+                            dtype=torch.int64, device=dev) for s in index_sets]
+    # the scene kernels' families: without the triangles when the sweep
+    # or the BVH traces them
+    ksets = list(sets)
+    if use_pallas or bvh is not None:
+        ksets[int(PrimType.TRIANGLE)] = sets[0][:0]
+    sizes = [int(s.shape[0]) for s in ksets]
     offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+
+    def table(a, dtype):
+        return torch.from_numpy(np.array(a, dtype=dtype, order="C")).to(dev)
+
+    bvh_fields = {} if bvh is None else dict(
+        bvh_bounds=table(bvh["bvh_bounds"], np.float32),
+        bvh_children=table(bvh["bvh_children"], np.int64),
+        bvh_prim_index=table(bvh["bvh_prim_index"], np.int64),
+        bvh_tri_rows=table(bvh["bvh_tri_rows"], np.float32))
     return ScenePrep(
         *sets,
-        code_of=scene_kernels.shape_codes(sets, scene.num_shapes, dev),
+        code_of=scene_kernels.shape_codes(ksets, scene.num_shapes, dev),
         # one pad entry: a miss (fam -1, slot 0) then indexes safely even
         # in a scene without shapes
-        sid_of_slot=torch.cat(sets + [torch.zeros(1, dtype=torch.int64,
-                                                  device=dev)]),
+        sid_of_slot=torch.cat(ksets + [torch.zeros(1, dtype=torch.int64,
+                                                   device=dev)]),
         fam_offset=torch.as_tensor(offsets, dtype=torch.int64, device=dev),
-        tables=scene_kernels.build_tables(sets, scene.params),
+        tables=scene_kernels.build_tables(ksets, scene.params),
         cluster=cluster,
+        use_pallas=use_pallas,
+        tri_rows=(scene.params[sets[int(PrimType.TRIANGLE)]][:, :9].contiguous()
+                  if use_pallas else None),
+        **bvh_fields,
     )
+
+
+def bvh_from_numpy(prep: ScenePrep, scene: SceneData, arrays: dict,
+                   use_pallas: bool = False) -> ScenePrep:
+    """``prep`` with a 4-wide BVH attached from arrays keyed
+    ``bvh_bounds``, ``bvh_children``, ``bvh_prim_index`` and
+    ``bvh_tri_rows``: the host build's (``ops.bvh.attach_bvh``), or the
+    JAX package's prep read field by field with ``np.asarray``, so that
+    both packages walk identical nodes."""
+    return prepare_from_sets(scene, [getattr(prep, a) for a in INDEX_FIELDS],
+                             cluster=prep.cluster, use_pallas=use_pallas, bvh=arrays)
 
 
 def trace_scene(prep: ScenePrep, scene: SceneData, o, d):
     """Nearest hit for a ray batch.
 
     Returns ``(t, shape_id, hit_mask, cost)`` — ``cost`` counts
-    primitive tests per ray.
+    primitive and node tests per ray.
+
+    Order, as in the JAX package: the scene kernel over the dense
+    families; then the triangles by the dense sweep (``use_pallas``) or
+    by the BVH walk pruned by the best hit so far, folded in with a
+    strict ``<``; then the clusters.
     """
     t, sid, hit, cost = scene_kernels.trace_scene_fused(prep, scene, o, d)
+    n_tri = prep.idx_triangle.shape[0]
+    if n_tri and (prep.use_pallas or prep.has_bvh):
+        if prep.use_pallas:
+            from wasm_pathtracer_tpu_torch.ops import traverse_kernels
+            t_tri, slot = traverse_kernels.dense_tri_nearest(
+                prep.tri_rows, o.contiguous(), d.contiguous())
+            sid_tri = prep.idx_triangle[torch.clamp(slot.long(), 0, n_tri - 1)]
+            sid_tri = torch.where(torch.isfinite(t_tri), sid_tri, -1)
+            cost = cost + n_tri
+        else:
+            from wasm_pathtracer_tpu_torch.ops import traverse
+            t_tri, sid_tri, visits = traverse.trace_bvh4(
+                prep.bvh_bounds, prep.bvh_children, prep.bvh_prim_index,
+                prep.bvh_tri_rows, o, d, t)
+            cost = cost + visits
+        better = t_tri < t
+        t = torch.where(better, t_tri, t)
+        sid = torch.where(better, sid_tri, sid)
+        hit = torch.isfinite(t)
     if prep.cluster is None:
         return t, sid, hit, cost
     t_cl, sid_cl, rounds = cl.trace_clusters(prep.cluster, o, d, t)
@@ -103,13 +184,14 @@ def trace_scene(prep: ScenePrep, scene: SceneData, o, d):
 def shadow_ray(prep: ScenePrep, scene: SceneData, p, point_on_light,
                light_sid, epsilon: float = isx.EPSILON):
     """Occlusion test; the target light shape itself does not occlude.
-    Returns (occluded mask, cost).  Without clusters this is the any-hit
-    kernel; with them, a nearest-hit trace and the comparison."""
+    Returns (occluded mask, cost).  This is the any-hit kernel when the
+    scene kernels hold every shape; with clusters, the dense sweep or a
+    BVH it is a nearest-hit trace and the comparison."""
     to_l = point_on_light - p
     dir_len = vm.length(to_l)
     d = to_l / dir_len[..., None]
     o = p + d * epsilon
-    if prep.cluster is None:
+    if prep.cluster is None and not (prep.use_pallas or prep.has_bvh):
         return scene_kernels.occluded_fused(prep, scene, o, d, dir_len, light_sid)
     t, sid, hit, cost = trace_scene(prep, scene, o, d)
     return hit & (t < dir_len) & (sid != light_sid), cost

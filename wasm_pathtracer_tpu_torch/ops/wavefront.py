@@ -47,7 +47,8 @@ from wasm_pathtracer_tpu_torch.utils import vecmath as vm
 
 def render_queue_flat(prep: tr.ScenePrep, scene, settings: RenderSettings,
                       camera: Camera, pix_queue, width: int, height: int, seed,
-                      n_lanes: int, rid_base=0, return_iters: bool = False):
+                      n_lanes: int, photon_grid=None, rid_base=0,
+                      return_iters: bool = False):
     """Persistent wavefront with flattened cluster traversal.
 
     The contract of :func:`ops.integrator.render_queue` (same queue
@@ -192,7 +193,8 @@ def render_queue_flat(prep: tr.ScenePrep, scene, settings: RenderSettings,
         (o_n, d_n, tp_n, col, alive_n, hdb_n, absorb_n), req = itg._shade_core(
             scene, settings, light_tab, tr_o, tr_d, tp, col, shade, hdb, absorb,
             bounce * itg._SLOTS_PER_BOUNCE, rid, seed, t_best, sid_best,
-            torch.isfinite(t_best), packed_rows=packed_rows)
+            torch.isfinite(t_best), packed_rows=packed_rows,
+            photon_grid=photon_grid)
         # adopt the estimator's updates on shade lanes only: elsewhere
         # (o_n, d_n) is the ray in flight, and the throughput update is
         # only meaningful where a hit was shaded
