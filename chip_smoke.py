@@ -18,7 +18,9 @@ its last line):
    atol 1e-4 where both hit, shape ids agree on > 99.5% (the tolerances
    of the JAX package's own kernel tests; the kernel contracts to FMA,
    the plain version does not).  Kernel and plain device times at
-   16,384 rays on the museum (``torch.profiler`` kernel durations).
+   16,384 rays on the museum (``cuda_ms``: CUDA events around a CUDA
+   graph of the kernel's calls, and around eager calls of the plain
+   version).
 4. K2, the any-hit shadow kernel, on shadow rays from those rays' hits
    toward random light points.  From origins within the scenes'
    geometry, verdicts agree on > 99.9% of rays.  From far origins
@@ -49,7 +51,7 @@ its last line):
    chose: hits agree on > 99.9% of rays, t within rtol 1e-5 / atol 1e-5,
    and a shape id may differ only where the two slots' distances tie
    within that tolerance.  Device times of K3-K6 and their plain
-   versions at 16,384 mesh70k rays.
+   versions at 16,384 rays at both table sizes (C = 550 and C = 2,344).
 10. The mesh path at full width: mesh70k (70,314 triangles and a plane),
    512x512, NEE, 8 bounces, S = 524,288 paths through
    ``render_queue_flat`` with 16,384 lanes.  Every sample counted once,
@@ -74,9 +76,11 @@ its last line):
 15. K8, the dense triangle sweep, against its plain version (runs before
    phase 8): mesh70k's 70,314 triangles and cloud300k's 300,002, 16,384 +
    37 camera and random rays each.  Hits agree on > 99.9% of rays, t
-   within rtol 1e-5 / atol 1e-5, slots on > 99% (the kernel's rsqrt is
-   approximate and nvcc contracts to FMA; a slot may differ on a tie).
-   Device times at 16,384 mesh70k rays.
+   within rtol 1e-5 / atol 1e-5, slots on > 99% (the kernel's rsqrt and
+   reciprocal are approximate, nvcc contracts to FMA, and the inside test
+   runs on rows staged per triangle; a slot may differ on a tie).  Device
+   times at 16,384 rays on both tables, each beside its bound, with the
+   kernel's launch grid, registers and shared memory.
 16. K7, the unreduced probe, inside phase 9 on the same three cluster
    sets and clusters: finiteness equal on > 99.9% of the (B, G) entries,
    values within rtol 1e-5 / atol 1e-5, and the minimum over G equal to
@@ -87,7 +91,8 @@ its last line):
    sample counted once, finite radiance, K8 and K1 launched twice per
    iteration (a nearest hit and a shadow trace), K2-K7 never.  Then a
    short run of the same loop under ``torch.profiler`` for the share of
-   wall time the device was busy.
+   wall time the device was busy; the trace must hold K8's and K1's
+   kernels as often as the wrappers counted launches.
 18. BVH4 against the sweep: mesh70k at 64x64, 1 spp, ``render_queue``
    with ``attach_bvh`` against the ``use_pallas`` prep: counts equal,
    >= 99% of paths agree, mean node visits per primary ray below 1% of
@@ -119,8 +124,11 @@ eight functions, so ``library_ms`` is null.
 The last lines of standard output are a JSON record of the paths, the
 card's name and power limit, a JSON record of each kernel (launches in
 the run of the path it serves, max |kernel - plain|, kernel, plain and
-bound ms) and a JSON status line.  The whole script takes about two and
-a half minutes on an H100.
+bound ms at the main path's shape: museum rays for K1 and K2, mesh70k for
+the others; ``other_shapes`` holds the same four numbers at cloud300k)
+and a JSON status line.  The whole script takes about two and a half
+minutes on an NVIDIA H100 80GB HBM3 at 700 W (110-152 s from a clean
+checkout, the builds included; 42-57 s of it are the four CLI processes).
 """
 
 from __future__ import annotations
@@ -151,26 +159,52 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, n):
-    """Mean device time of ``fn`` over ``n`` calls: the summed durations
-    of the CUDA kernels it launched, from ``torch.profiler``.  (Events
-    around the calls would also count the gaps in which the device waits
-    for the host to launch the next kernel: a wrapper's Python takes
-    longer than these kernels run.)  Raises when the profiler records no
-    device activity."""
+def sm_clocks() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, n, graph=True):
+    """ms of one ``fn()``, by CUDA events around ``n`` calls.
+
+    With ``graph`` (the kernels) the calls are captured in a CUDA graph
+    and the events stand around five replays of it: inside a graph the
+    kernels follow each other without waiting for the host, whose Python
+    takes longer per call than most of these kernels run.  The time of a
+    call is then its kernels' device time and the ~0.002 ms between two
+    launches of a graph.  Without (the plain versions: hundreds of small
+    kernels a call, some with a host read between them that a graph
+    cannot hold) the calls run eagerly, and the time is the wall time of
+    an eager call on the device's clock: it includes what the device
+    waits for the host, so it is what a caller of the plain version
+    would wait, not the sum of its kernels.  (``torch.profiler``'s kernel
+    durations would leave the gaps out, but in a process that has run
+    for a while its traces come back without some of their kernels.)
+    Raises when the events measured nothing."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    run, runs = fn, n
+    if graph:
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            for _ in range(n):
+                fn()
+        captured.replay()
         torch.cuda.synchronize()
-    us = sum(e.device_time for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no CUDA kernel time")
-    return us / 1e3 / n
+        run, runs = captured.replay, 5
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(runs):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (runs * n if graph else runs)
+    if not ms > 0:
+        raise RuntimeError("the CUDA events around the calls measured no time")
+    return ms
 
 
 PEAK_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
@@ -469,7 +503,7 @@ def phase_kernel_k1(device, record):
         if name == "museum":
             o16, d16 = o[:16_384].contiguous(), d[:16_384].contiguous()
             ms = cuda_ms(lambda: sk.fused_nearest(tables, o16, d16), 50)
-            plain_ms = cuda_ms(lambda: sk.fused_nearest_reference(tables, o16, d16), 5)
+            plain_ms = cuda_ms(lambda: sk.fused_nearest_reference(tables, o16, d16), 5, graph=False)
             b_ms, b_by = bound(scene_flops(tables, o16, d16),
                                4 * tables.flat.numel() + 16_384 * (24 + 12))
     log(f"K1 museum B=16384: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
@@ -523,7 +557,7 @@ def phase_kernel_k2(device, record):
         if name == "museum":
             args = [x[:16_384].contiguous() for x in (so, sd, dist, excl)]
             ms = cuda_ms(lambda: sk.fused_occluded(tables, *args), 50)
-            plain_ms = cuda_ms(lambda: sk.fused_occluded_reference(tables, *args), 5)
+            plain_ms = cuda_ms(lambda: sk.fused_occluded_reference(tables, *args), 5, graph=False)
             # a torus whose box entry lies beyond the light cannot occlude
             b_ms, b_by = bound(scene_flops(tables, args[0], args[1], t_max=args[2]),
                                4 * tables.flat.numel() + 16_384 * (24 + 8 + 1))
@@ -534,30 +568,45 @@ def phase_kernel_k2(device, record):
                                                    bound_by=b_by)
 
 
-def busy_share(fn):
+def busy_share(fn, kernels):
     """Share of the wall time of ``fn()`` in which the device ran a
     kernel: summed kernel durations from ``torch.profiler`` over the host
-    clock (the profiler's own overhead is in the wall time)."""
+    clock (the profiler's own overhead is in the wall time).  ``kernels``
+    maps a wrapper's name to the name of the CUDA kernel it launches: the
+    trace must hold each as often as the wrapper counted launches in
+    ``fn()``, else it lost kernels and the share would read too low.  Such
+    a trace is thrown away and taken again, three times at most; then
+    this raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(3):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.device_time)
+        reset_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launched = read_counts()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                n, us = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (n + 1, us + e.device_time)
+        traced = {w: sum(n for name, (n, _) in by_name.items() if k in name)
+                  for w, k in kernels.items()}
+        if all(traced[w] == launched[w] > 0 for w in kernels):
+            break
+        log(f"trace {attempt + 1} thrown away: it holds {traced}, the wrappers "
+            f"launched {({w: launched[w] for w in kernels})}")
+    else:
+        raise RuntimeError("three traces in a row lost kernels of the loop")
     total = sum(us for _, us in by_name.values())
-    if total <= 0:
-        raise RuntimeError("torch.profiler recorded no CUDA kernel time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]
     log(f"device time {total / 1e3:.1f} ms of {1e3 * wall:.1f} ms wall in "
-        f"{sum(n for n, _ in by_name.values())} kernels; top: " + "; ".join(
-            f"{name[:48]} x{n} {us / 1e3:.1f} ms" for name, (n, us) in top))
+        f"{sum(n for n, _ in by_name.values())} kernels ({traced} as launched); "
+        "top: " + "; ".join(f"{name[:48]} x{n} {us / 1e3:.1f} ms"
+                            for name, (n, us) in top))
     return total / 1e6 / wall
 
 
@@ -893,28 +942,30 @@ def phase_cluster_kernels(device, record):
             calls["select_scan"] = (
                 lambda: pk.select_scan(cs, prep, o16, d16, se, sc),
                 lambda: pk.select_scan_reference(cs, prep, o16, d16, se, sc))
-        times = {k: (cuda_ms(kern, 20), cuda_ms(plain, 3))
+        times = {k: (cuda_ms(kern, 20), cuda_ms(plain, 3, graph=False))
                  for k, (kern, plain) in calls.items()}
         log(f"{name} B=16384 device ms (kernel, plain): " + ", ".join(
             f"{k} {ms:.4f} / {pms:.4f}" for k, (ms, pms) in times.items()))
-        if name == "mesh70k":
-            C, G, B = cs.num_clusters, cs.group, 16_384
-            slab = B * C * FLOPS["box"]
-            rays, boxes, table = B * 24, 4 * 6 * C, 4 * cs.table.numel()
-            probe = probe_flops(cs, a)
-            bounds = {
-                "select_blocks": bound(slab, rays + B * 8 + boxes + B * 20),
-                "select_scan": bound(slab + scene_flops(prep.tables, o16, d16),
-                                     rays + B * 8 + boxes + 4 * prep.tables.flat.numel()
-                                     + B * 28),
-                "probe_pair": bound(probe + probe_flops(cs, b), rays + B * 8 + table + B * 16),
-                "probe_min": bound(probe, rays + B * 4 + table + B * 8),
-                "probe_blocks": bound(probe, rays + B * 4 + table + B * G * 4)}
-            for k, (ms, pms) in times.items():
-                record.setdefault(k, {}).update(ms=ms, plain_ms=pms, bound_ms=bounds[k][0],
-                                                bound_by=bounds[k][1])
-            log("mesh70k bounds: " + ", ".join(f"{k} {v[0]:.5f} ms by {v[1]}"
-                                               for k, v in bounds.items()))
+        C, G, B = cs.num_clusters, cs.group, 16_384
+        slab = B * C * FLOPS["box"]
+        rays, boxes, table = B * 24, 4 * 6 * C, 4 * cs.table.numel()
+        probe = probe_flops(cs, a)
+        bounds = {
+            "select_blocks": bound(slab, rays + B * 8 + boxes + B * 20),
+            "select_scan": bound(slab + scene_flops(prep.tables, o16, d16),
+                                 rays + B * 8 + boxes + 4 * prep.tables.flat.numel()
+                                 + B * 28),
+            "probe_pair": bound(probe + probe_flops(cs, b), rays + B * 8 + table + B * 16),
+            "probe_min": bound(probe, rays + B * 4 + table + B * 8),
+            "probe_blocks": bound(probe, rays + B * 4 + table + B * G * 4)}
+        for k, (ms, pms) in times.items():
+            at = dict(ms=ms, plain_ms=pms, bound_ms=bounds[k][0], bound_by=bounds[k][1])
+            if name == "mesh70k":
+                record.setdefault(k, {}).update(at)
+            else:   # the larger table: C = 2,344
+                record.setdefault(k, {})["other_shapes"] = {name: at}
+        log(f"{name} bounds: " + ", ".join(f"{k} {v[0]:.5f} ms by {v[1]}"
+                                           for k, v in bounds.items()))
     for k, err in errs.items():
         record.setdefault(k, {})["max_abs_err"] = err
 
@@ -924,8 +975,10 @@ def phase_kernel_k8(device, record):
     cloud300k's, 16,384 + 37 camera and random rays each.  Hits agree on
     > 99.9% of rays, t within rtol 1e-5 / atol 1e-5 where both hit, slots
     on > 99% (the rule of the JAX package's ``tests/test_pallas_dense.py``:
-    the kernel's rsqrt is approximate and nvcc contracts to FMA), a miss
-    reads slot -1.  Device times at 16,384 rays on mesh70k."""
+    the kernel's rsqrt and reciprocal are approximate, nvcc contracts to
+    FMA, and the inside test runs on rows staged per triangle), a miss
+    reads slot -1.  Device times at 16,384 rays on both, and the kernel's
+    launch grid, registers and shared memory."""
     import torch
     from wasm_pathtracer_tpu_torch.models import scenes
     from wasm_pathtracer_tpu_torch.models.camera import initial_camera
@@ -935,6 +988,7 @@ def phase_kernel_k8(device, record):
                         mesh_camera(device)),
             "cloud300k": (scenes.cloud(300_000, device=device), initial_camera(5, device))}
     worst = 0.0
+    rec = record.setdefault("dense_tri_nearest", {})
     for i, (name, (scene, cam)) in enumerate(sets.items()):
         rows = trace.prepare(scene, use_pallas=True).tri_rows
         o, d = test_rays(16_384 + 37, 500 + i, device, cam)
@@ -955,17 +1009,21 @@ def phase_kernel_k8(device, record):
                 and bool(((s_k[hit_k] >= 0) & (s_k[hit_k] < rows.shape[0])).all())):
             raise AssertionError(f"K8 disagrees with its plain version on {name}")
         worst = max(worst, err)
+        o16, d16 = o[:16_384].contiguous(), d[:16_384].contiguous()
+        ms = cuda_ms(lambda: tk.dense_tri_nearest(rows, o16, d16), 5)
+        plain_ms = cuda_ms(lambda: tk.dense_tri_nearest_reference(rows, o16, d16), 1, graph=False)
+        b_ms, b_by = bound(16_384 * rows.shape[0] * FLOPS["sweep"],
+                           4 * rows.numel() + 16_384 * (24 + 8))
+        log(f"K8 {name} B=16384: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms by {b_by} ({100 * b_ms / ms:.1f}% of the kernel's "
+            f"time); launch {tk.launch_shape(rows.shape[0], 16_384)}; "
+            f"SM clock now / max {sm_clocks()}")
         if name == "mesh70k":
-            o16, d16 = o[:16_384].contiguous(), d[:16_384].contiguous()
-            ms = cuda_ms(lambda: tk.dense_tri_nearest(rows, o16, d16), 5)
-            plain_ms = cuda_ms(lambda: tk.dense_tri_nearest_reference(rows, o16, d16), 1)
-            b_ms, b_by = bound(16_384 * rows.shape[0] * FLOPS["sweep"],
-                               4 * rows.numel() + 16_384 * (24 + 8))
-            log(f"K8 mesh70k B=16384: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {b_ms:.4f} ms by {b_by}")
-            record.setdefault("dense_tri_nearest", {}).update(
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-    record["dense_tri_nearest"]["max_abs_err"] = worst
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        else:
+            rec["other_shapes"] = {name: dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                              bound_by=b_by)}
+    rec["max_abs_err"] = worst
 
 
 def phase_mesh_path(device, record):
@@ -1098,9 +1156,11 @@ def phase_sweep_path(device, record):
     record.setdefault("dense_tri_nearest", {})["launches"] = launches["dense_tri_nearest"]
     short = headline_queue(device, 8 * h["B"])
     rec["device_busy_share"] = busy_share(lambda: integrator.render_queue(
-        prep, scene, st, cam, short, h["width"], h["height"], 3, h["B"]))
+        prep, scene, st, cam, short, h["width"], h["height"], 3, h["B"]),
+        {"dense_tri_nearest": "dense_tri_kernel", "fused_nearest": "fused_nearest_kernel"})
     log(f"dense-sweep path: device busy {100 * rec['device_busy_share']:.1f}% of wall "
-        f"time under the profiler (S={short.numel()})")
+        f"time under the profiler (S={short.numel()}; the trace holds every launch of "
+        f"K8 and K1)")
     record["sweep_path"] = rec
 
 
@@ -1316,7 +1376,7 @@ def main(argv) -> int:
                     max_abs_err=record[name]["max_abs_err"],
                     ms=record[name]["ms"], plain_ms=record[name]["plain_ms"],
                     bound_ms=record[name]["bound_ms"], bound_by=record[name]["bound_by"],
-                    library_ms=None)
+                    library_ms=None, other_shapes=record[name].get("other_shapes", {}))
                for name, rep, src in KERNELS]
     log(json.dumps({k: record[k] for k in ("main_path", "mesh_path", "sweep_path",
                                            "pnee_path", "adaptive_1080p")}))

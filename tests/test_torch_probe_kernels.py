@@ -23,6 +23,13 @@ cluster tables carried over from the JAX package by
   count): finiteness equal entry by entry, distances within the same
   tolerances.
 
+- the select kernels split a ray's boxes over L lanes and merge the
+  lanes' candidates: ``select_blocks_lanes_reference`` (that route in
+  plain PyTorch, with ``merge_top3``) equals ``select_blocks_reference``
+  bit for bit for L = 8, 16, 32, on random boxes, duplicated boxes (exact
+  entry ties) with cursors that sit on a tie, a single box, and a mesh's
+  clusters.
+
 The CUDA kernels run only on a GPU; ``test_cuda_kernel_matches_plain_on
 _gpu`` holds each against its plain version there and skips here.  Its
 scenes hold spheres and tori, so distances take the mixed-family
@@ -182,6 +189,88 @@ def test_select_scan_matches_pallas(name):
     np.testing.assert_allclose(t1[hit], t0[hit], rtol=TOL, atol=TOL)
     np.testing.assert_array_equal(s1[hit], s0[hit])
     assert (s1[~hit] == -1).all() and hit.sum() >= 8
+
+
+def _box_set(C, seed, device="cpu"):
+    """A cluster set of ``C`` random boxes around the scenes' volume; the
+    selects read only its boxes (its one-slot blocks are padding)."""
+    r = np.random.default_rng(seed)
+    lo = (r.uniform(-3, 3, (C, 3)) + [0, 0, 6.0]).astype(np.float32)
+    hi = lo + r.uniform(0.3, 2.0, (C, 3)).astype(np.float32)
+    return tcl.cluster_from_numpy(
+        dict(lo=lo, hi=hi, blocks=np.zeros((C, 1, 9), np.float32),
+             btype=np.full((C, 1), -1, np.int32), slot_to_sid=np.full(C, -1, np.int64)),
+        (2,), device)
+
+
+def _doubled(cs):
+    """``cs`` with every cluster twice: ids c and c + C have the same box,
+    so every entry ties exactly with another."""
+    two = {k: np.concatenate([getattr(cs, k).numpy()] * 2) for k in tcl.ARRAY_FIELDS}
+    return tcl.cluster_from_numpy(two, cs.families)
+
+
+# C = 77 is a multiple of no lane count; 2 x 45 duplicated boxes tie in
+# pairs; one box leaves most lanes empty; a mesh's clusters (C = 3)
+MERGE_CASES = {
+    "random77": lambda: _box_set(77, 0),
+    "duplicated": lambda: _doubled(_box_set(45, 1)),
+    "single": lambda: _box_set(1, 2),
+    "mesh": lambda: _case("mesh")[2].cluster,
+}
+
+
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+@pytest.mark.parametrize("name", list(MERGE_CASES))
+def test_select_lanes_merge_equals_reference(name, lanes):
+    cs = MERGE_CASES[name]()
+    C, n = cs.num_clusters, 600
+    o, d = (torch.from_numpy(x) for x in _rays(n, seed=17))
+    # a third of the cursors fresh or random, a third on the first
+    # candidate and a third on the second: with duplicated boxes those sit
+    # on a tie, and the next candidate has the cursor's own entry
+    skip_e, skip_c = (torch.from_numpy(x) for x in _cursors(n, C, seed=3))
+    first = pk.select_blocks_reference(cs, o, d, torch.full((n,), -torch.inf),
+                                       torch.full((n,), -1, dtype=torch.int32))
+    for k, (e, c) in ((1, first[0:2]), (2, first[2:4])):
+        on = (torch.arange(n) % 3 == k) & torch.isfinite(e)
+        skip_e, skip_c = torch.where(on, e, skip_e), torch.where(on, c, skip_c)
+    ref = pk.select_blocks_reference(cs, o, d, skip_e, skip_c)
+    out = pk.select_blocks_lanes_reference(cs, o, d, skip_e, skip_c, lanes)
+    for a, b in zip(out[0::2], ref[0::2]):
+        assert torch.equal(a, b)
+    for c_out, c_ref, e in ((out[1], ref[1], ref[0]), (out[3], ref[3], ref[2])):
+        fin = torch.isfinite(e)
+        assert torch.equal(c_out[fin].long(), c_ref[fin].long())
+    assert torch.isfinite(ref[0]).sum() > 5
+    if name == "duplicated":
+        tied = torch.isfinite(ref[0]) & (ref[0] == ref[2])
+        on_tie = torch.isfinite(ref[0]) & (ref[0] == skip_e)
+        assert tied.sum() > 30 and on_tie.sum() > 30
+        assert (ref[3][tied] == ref[1][tied] + C // 2).all()
+
+
+def test_merge_top3_orders_pairs_lexicographically():
+    """Equal entries order by id, whichever side they come from; the
+    third is a value only."""
+    def triple(e1, c1, e2, c2, e3):
+        return (torch.tensor([e1]), torch.tensor([c1]), torch.tensor([e2]),
+                torch.tensor([c2]), torch.tensor([e3]))
+
+    inf = float("inf")
+    cases = [   # a, b, merged
+        ((1.0, 5, 2.0, 7, 3.0), (1.0, 2, 2.0, 9, 2.5), (1.0, 2, 1.0, 5, 2.0)),
+        ((1.0, 2, 4.0, 7, 5.0), (2.0, 1, 3.0, 0, 3.5), (1.0, 2, 2.0, 1, 3.0)),
+        ((inf, 0, inf, 0, inf), (2.0, 4, inf, 0, inf), (2.0, 4, inf, 0, inf)),
+        ((2.0, 4, 2.0, 6, 2.0), (2.0, 5, 2.0, 7, 9.0), (2.0, 4, 2.0, 5, 2.0)),
+    ]
+    for a, b, want in cases:
+        for x, y in ((a, b), (b, a)):
+            got = pk.merge_top3(triple(*x), triple(*y))
+            assert [float(got[0]), int(got[1]), float(got[2]), float(got[4])] == \
+                [want[0], want[1], want[2], want[4]]
+            if np.isfinite(want[2]):
+                assert int(got[3]) == want[3]
 
 
 def _assert_probe_close(cs, o, d, cidx, ref, out, tol):
@@ -398,3 +487,21 @@ def test_cuda_kernel_matches_plain_on_gpu(cuda_device, kernel):
         torch.testing.assert_close(t_k[both], t_p[both], rtol=PROBE_TOL["mixed"],
                                    atol=PROBE_TOL["mixed"])
         assert (s_k == s_p)[both].float().mean() > 0.995
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 77])
+def test_cuda_select_ragged_box_counts_on_gpu(cuda_device, C):
+    """One box, and a box count that is a multiple of no lane count: the
+    kernel's entries equal the plain version bit for bit."""
+    cs = _box_set(C, 5, cuda_device)
+    n = 4096 + 37
+    o, d = (torch.from_numpy(x).to(cuda_device) for x in _rays(n, seed=23))
+    skip_e, skip_c = (torch.from_numpy(x).to(cuda_device) for x in _cursors(n, C, seed=6))
+    out = pk.select_blocks(cs, o, d, skip_e, skip_c)
+    ref = pk.select_blocks_reference(cs, o, d, skip_e, skip_c)
+    for a, b in zip(out[0::2], ref[0::2]):
+        assert torch.equal(a, b)
+    for c_k, c_p, e in ((out[1], ref[1], ref[0]), (out[3], ref[3], ref[2])):
+        fin = torch.isfinite(e)
+        assert torch.equal(c_k[fin], c_p[fin])

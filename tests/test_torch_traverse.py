@@ -9,6 +9,13 @@ slots and shape ids equal except where two candidates tie within that
 tolerance; BVH tables, visit counts, sample counts and primitive-test
 totals exactly; per-path radiance rtol/atol 2e-5 (``tests/test_wavefront.py``).
 
+The CUDA kernel evaluates the inside test from rows it stages once per
+triangle; ``dense_tri_nearest_staged`` is that arithmetic in plain
+PyTorch, held here against the plain version and the Pallas kernel under
+the rule of ``chip_smoke.py``'s phase ``k8`` (hits agree on > 99.9% of
+rays, t within rtol/atol 1e-5, slots on > 99%), with the two exceptions
+``STAGED_CASES`` states.
+
 The CUDA kernel runs only on a GPU; ``test_cuda_sweep_matches_plain_on_gpu``
 holds it against its plain version there (t within 1e-5 on > 99.9% of the
 hits, within 1e-4 on all) and skips here.
@@ -128,6 +135,145 @@ def test_dense_sweep_rejects_non_cuda_device():
     o, d = (torch.from_numpy(x).to("meta") for x in _rays(8))
     with pytest.raises(ValueError):
         tk.dense_tri_nearest(torch.zeros((4, 9), device="meta"), o, d)
+
+
+# ---------------------------------------------------------------------------
+# K8: the arithmetic of the CUDA kernel (rows staged per triangle)
+# ---------------------------------------------------------------------------
+
+def _aimed_rays(n, seed, shift=0.0):
+    """Rays from in front of the triangle cloud into its volume (a third
+    of them hit), everything moved by ``shift`` along each axis."""
+    r = np.random.default_rng(seed)
+    o = r.uniform(-3, 3, (n, 3))
+    o[:, 2] -= 4.0
+    d = r.uniform([-2.5, -2.5, 0], [3, 3, 5.5], (n, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (o + shift).astype(np.float32), d.astype(np.float32)
+
+
+def _edge_rays(tris, n, seed):
+    """Rays from outside a (T, 3, 3) mesh at points of its edges, every
+    third one at a vertex: each target lies on two or more triangles."""
+    r = np.random.default_rng(seed)
+    i, k = r.integers(0, tris.shape[0], n), r.integers(0, 3, n)
+    a, b = tris[i, k], tris[i, (k + 1) % 3]
+    w = r.random((n, 1))
+    w[::3] = 0.0
+    target = a * (1 - w) + b * w
+    o = target * r.uniform(2.0, 3.0, (n, 1)) + 0.3 * r.normal(size=(n, 3))
+    d = target - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def _cloud_rows():
+    return jscenes.triangle_cloud(700, seed=5).reshape(-1, 9).astype(np.float32)
+
+
+# name -> (rows, rays(n), hit agreement, t tolerance, exact slots):
+# - cloud700: phase k8's rule as it stands.
+# - mesh_edges: every ray is aimed at a shared edge or vertex of a closed
+#   mesh, so two or more triangles hold the hit point at the same t and
+#   rounding picks among them (the plain version and the Pallas kernel
+#   agree on only ~60% of these slots themselves).  A differing slot must
+#   be such a tie: the plain version's own distance to it equals its t.
+# - translated_1e3: the same cloud and rays moved by 1e3, where the
+#   staged offsets k_i = slack - a_i . m_i cancel.  A coordinate's ulp is
+#   6.1e-5 there, three times the 2e-5 edge slack, so a hit point within
+#   ~1e-4 of an edge may fall on either side: up to 0.5% of rays may flip
+#   (1 of 4,096 does).  t = (n.v0 - n.o) / n.d cancels two terms of size
+#   1e3 |n| in every version (the plain version and the Pallas kernel
+#   differ by 3e-4 from each other), so t is held to 2e-3, 32 ulp of a
+#   coordinate.
+STAGED_CASES = {
+    "cloud700": (_cloud_rows, lambda n: _aimed_rays(n, 1), 0.999, TOL, True),
+    "mesh_edges": (lambda: jscenes.surface_mesh(14).reshape(-1, 9).astype(np.float32),
+                   lambda n: _edge_rays(jscenes.surface_mesh(14), n, 3), 0.999, TOL, False),
+    "translated_1e3": (lambda: _cloud_rows() + np.float32(1e3),
+                       lambda n: _aimed_rays(n, 1, 1e3), 0.995, 2e-3, True),
+}
+
+
+def _assert_sweeps_agree(rows, o, d, got, ref, hit_rate, tol, exact_slots):
+    (t1, s1), (t0, s0) = got, ref
+    h1, h0 = np.isfinite(t1), np.isfinite(t0)
+    both = h1 & h0
+    assert (h1 == h0).mean() > hit_rate
+    np.testing.assert_allclose(t1[both], t0[both], rtol=tol if tol == TOL else 0, atol=tol)
+    assert (s1[~h1] == -1).all()
+    assert both.sum() > 60
+    differ = np.nonzero(both & (s1 != s0))[0]
+    if exact_slots:
+        assert differ.size < 0.01 * both.sum()
+        return
+    # a differing slot is a tie: the plain version's distance to it is t
+    rows, o, d = (torch.from_numpy(x) for x in (rows, o, d))
+    own = tk._chunk_distances(rows[s1[differ]], o[differ], d[differ]).numpy()
+    np.testing.assert_allclose(np.diagonal(own), t0[differ], rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("case", list(STAGED_CASES))
+def test_dense_sweep_staged_matches_plain(case):
+    make_rows, make_rays, hit_rate, tol, exact = STAGED_CASES[case]
+    rows = make_rows()
+    o, d = make_rays(4096)
+    args = [torch.from_numpy(x) for x in (rows, o, d)]
+    got = [x.numpy() for x in tk.dense_tri_nearest_staged(*args)]
+    ref = [x.numpy() for x in tk.dense_tri_nearest_reference(*args)]
+    assert got[1].dtype == np.int32
+    _assert_sweeps_agree(rows, o, d, got, ref, hit_rate, tol, exact)
+
+
+@pytest.mark.parametrize("case", list(STAGED_CASES))
+def test_dense_sweep_staged_matches_pallas_interpret(case):
+    make_rows, make_rays, hit_rate, tol, exact = STAGED_CASES[case]
+    rows = make_rows()
+    o, d = make_rays(jtp.RAY_BLOCK)
+    with jax.disable_jit(), pltpu.force_tpu_interpret_mode():
+        ref = jtp.dense_tri_nearest(jtp.pad_tris(jnp.asarray(rows)),
+                                    *jtp.pad_rays(jnp.asarray(o), jnp.asarray(d)))
+    ref = [np.asarray(x)[: o.shape[0]] for x in ref]
+    got = [x.numpy() for x in tk.dense_tri_nearest_staged(
+        *(torch.from_numpy(x) for x in (rows, o, d)))]
+    _assert_sweeps_agree(rows, o, d, got, ref, hit_rate, tol, exact)
+
+
+def test_staged_rows_are_the_triple_product_form():
+    """(e_i x (p - a_i)) . n / |n| + slack == p . m_i + k_i, held in
+    float64 against the float32 rows, and the plane columns."""
+    rows = torch.from_numpy(_cloud_rows())
+    staged = tk.staged_rows(rows)
+    assert staged.shape == (700, 16) and staged.dtype == torch.float32
+    v = rows.double().view(-1, 3, 3)
+    n = torch.linalg.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
+    np.testing.assert_allclose(staged[:, 0:3].numpy(), n.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(staged[:, 3].numpy(), (n * v[:, 0]).sum(-1).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    p = torch.from_numpy(np.random.default_rng(0).uniform(-3, 5, (700, 3)))
+    for i in range(3):
+        a, e = v[:, i], v[:, (i + 1) % 3] - v[:, i]
+        want = (torch.linalg.cross(e, p - a) * n).sum(-1) / n.norm(dim=-1) + 2e-5
+        m, k = staged[:, 4 + 4 * i:7 + 4 * i].double(), staged[:, 7 + 4 * i].double()
+        np.testing.assert_allclose(((p * m).sum(-1) + k).numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_dense_sweep_staged_edge_cases():
+    """No triangles and a degenerate (all-zero) triangle miss; any
+    chunking keeps the first minimum among duplicated triangles."""
+    o, d = (torch.from_numpy(x) for x in _aimed_rays(1500, 2))
+    t, s = tk.dense_tri_nearest_staged(torch.zeros((0, 9)), o, d)
+    assert torch.isinf(t).all() and (s == -1).all()
+    t, s = tk.dense_tri_nearest_staged(torch.zeros((3, 9)), o, d)
+    assert torch.isinf(t).all() and (s == -1).all()
+    rows = torch.from_numpy(_cloud_rows()[:90])
+    rows = torch.cat([rows, rows[:40]])                  # slots 90.. repeat 0..
+    ref = tk.dense_tri_nearest_staged(rows, o, d, chunk=130)
+    for chunk in (1, 7, 64):
+        out = tk.dense_tri_nearest_staged(rows, o, d, chunk=chunk)
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+    assert int(ref[1].max()) < 90 and int((ref[1] >= 0).sum()) > 20
 
 
 # ---------------------------------------------------------------------------
@@ -297,16 +443,22 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_tri,n_rays", [(700, 256), (5000, 4096 + 37)])
+# the kernel tiles 4 rays a thread x 128 threads and 256 triangles: a
+# ragged ray count, three rays, and fewer triangles than one tile
+@pytest.mark.parametrize("n_tri,n_rays", [(700, 256), (5000, 4096 + 37), (5000, 3),
+                                          (100, 4096 + 37)])
 def test_cuda_sweep_matches_plain_on_gpu(cuda_device, n_tri, n_rays):
     rows = torch.from_numpy(jscenes.triangle_cloud(n_tri, seed=5).reshape(-1, 9)
                             .astype(np.float32)).to(cuda_device)
-    o, d = (torch.from_numpy(x).to(cuda_device) for x in _rays(n_rays, seed=1))
+    # a handful of rays is aimed into the cloud, so that some hit
+    make_rays = _aimed_rays if n_rays < 64 else _rays
+    o, d = (torch.from_numpy(x).to(cuda_device) for x in make_rays(n_rays, 1))
     t_k, s_k = tk.dense_tri_nearest(rows, o, d)
     t_p, s_p = tk.dense_tri_nearest_reference(rows, o, d)
     hit = torch.isfinite(t_p)
     assert (torch.isfinite(t_k) == hit).float().mean() > 0.999
     both = hit & torch.isfinite(t_k)
+    assert both.any()
     # random rays graze some triangles: t divides by a small n.d, which
     # amplifies the FMA rounding of the kernel against the plain version
     assert torch.isclose(t_k[both], t_p[both], rtol=TOL, atol=TOL).float().mean() > 0.999

@@ -7,19 +7,50 @@
 //                    <- probe_blocks_min (_make_min_kernel, 1 round)   K5
 //   wpt_probe_blocks <- probe_blocks     (_make_kernel, unreduced)     K7
 //
-// Select (K3/K6), one thread per ray.  Every ray runs the slab test
-// against all C cluster boxes and keeps, after its lex cursor
+// Select (K3/K6), SELECT_LANES lanes per ray.  Every ray runs the slab
+// test against all C cluster boxes and keeps, after its lex cursor
 // (skip_e, skip_c), the two lexicographically smallest (entry, id) pairs
-// and the entry of the third.  What bounds it: FP32 ALU work, ~25
-// operations per (ray, box); the boxes are streamed through shared memory
-// in tiles that every thread of a block reads at the same address (a
-// broadcast), so a box costs no global traffic per ray.  Visiting ids in
-// ascending order with strict compares on the entry keeps the lowest id
-// among equal entries, which is the TPU kernel's min / where(ent == e)
-// reduction.  With DENSE (K3) the thread also scans the small dense
-// remainder (<= 64 shapes, staged in shared memory) with the scene
-// kernels' family functions and fold (scene_families.cuh), as the TPU
-// kernel reuses the megakernel's _t_planes ... _t_squares.
+// and the entry of the third.  What bounds it: float32 instruction throughput.
+// The bound counts 27 operations per (ray, box) at the card's 67 TFLOP/s,
+// which is its fused-multiply-add rate; the slab test has no product to
+// fuse (it must stay the plain version's operation for operation, so that
+// entries equal it bit for bit), and with the cursor test and the
+// insertion a pair takes ~43 instructions of the ~33.5 T/s the card
+// executes: a floor near 0.012 ms at 16,384 rays x 550 boxes, where the
+// bound reads 0.0036 ms.  The (6, C) box table (13 KB at C = 550, 56 KB at
+// C = 2,344) is read by every ray and never leaves L1/L2.
+// What the design does:
+//  - lane j of a ray's group takes boxes j, j + L, ... and keeps its own
+//    sorted three (e1, c1), (e2, c2), e3; the group merges them with xor
+//    shuffles in log2 L rounds (merge_top3).  The three smallest of a union
+//    lie in the union of the three smallest, so the merge is exact; it
+//    compares (entry, id) lexicographically, since ids no longer ascend in
+//    visit order, and the third needs no id because only its entry is
+//    returned.  Within a lane ids do ascend, and strict compares on the
+//    entry keep the lowest id among equal entries: the TPU kernel's
+//    min / where(ent == e) reduction.  With 16,384 rays x 8 lanes there are
+//    4,096 warps to fill 132 SMs, where one thread per ray (the first
+//    version: 128 blocks of 4 warps, one dependent chain per ray) left the
+//    card ~3% occupied;
+//  - a block stages the boxes once into shared memory, transposed to one
+//    float4 of lows and one of highs per box (tiles of SELECT_TILE boxes,
+//    one tile at C = 550), so that a box costs two 16-byte loads at
+//    immediate offsets where six 4-byte loads from the (6, C) rows cost six
+//    64-bit address computations as well;
+//  - the loop has no branch: the cursor and hit tests combine into one
+//    predicate, a box that fails enters as +inf, and the insertion into the
+//    sorted three is five min/max and three selects (insert_top3).  A
+//    branch per box diverges in most trips, since some lane of a warp
+//    nearly always has a box to insert.
+// Timed and dropped (PERF.md): boxes read straight from global memory
+// through L1 with a branching insertion (as fast at C = 550, slower at
+// C = 2,344); two rays per thread on top of that; 4, 16 and 32 lanes (4 and
+// 16 within a few percent of 8, 32 pays for five merge rounds).
+// With DENSE (K3) the group also splits the small dense remainder (<= 64
+// shapes, staged in shared memory) with the stride nearest_scan takes, as
+// K1 does, and folds the lanes' (t, code) minima the same way; the family
+// functions are the scene kernels' (scene_families.cuh), as the TPU kernel
+// reuses the megakernel's _t_planes ... _t_squares.
 //
 // Probe (K4/K5), one warp per ray and round.  Lane j tests slots j, j+32,
 // ... of the ray's cluster, then a warp-shuffle reduction keeps the
@@ -55,14 +86,56 @@
 
 namespace wpt {
 
-constexpr int SELECT_BLOCK = 128;   // rays per select block
-constexpr int BOX_TILE = 256;       // boxes per shared-memory tile
+constexpr int SELECT_LANES = 8;     // lanes per ray (a power of two <= 32)
+constexpr int SELECT_TILE = 1024;   // boxes per shared-memory tile
+constexpr int SELECT_BLOCK = 256;   // threads per select block
+constexpr int SELECT_RAYS = SELECT_BLOCK / SELECT_LANES;   // rays per block
 constexpr int PROBE_BLOCK = 128;    // threads per probe block: 4 rays
 constexpr int TABLE_ROWS = 11;      // params 0-8, type code, shape id
 constexpr unsigned PROBE_MASK = 0xffffffffu;
 
 __device__ __forceinline__ float nz30(float x) {
   return fabsf(x) < 1e-30f ? 1e-30f : x;
+}
+
+// A lane's or a group's three smallest unvisited entries, in lexicographic
+// (entry, id) order; the third's id is not kept.  +inf where there is none
+// (its id reads 0).
+struct Top3 {
+  float e1, e2, e3;
+  int c1, c2;
+};
+
+__device__ __forceinline__ bool lex_less(float e, int c, float f, int d) {
+  return e < f || (e == f && c < d);
+}
+
+// a <- the three smallest of a and b together
+__device__ __forceinline__ void merge_top3(Top3& a, Top3 b) {
+  if (lex_less(b.e1, b.c1, a.e1, a.c1)) {
+    const Top3 s = a;
+    a = b;
+    b = s;
+  }
+  // a's first is the smallest; the second is a's second or b's first
+  if (lex_less(b.e1, b.c1, a.e2, a.c2)) {
+    a.e3 = fminf(a.e2, b.e2);
+    a.e2 = b.e1;
+    a.c2 = b.c1;
+  } else {
+    a.e3 = fminf(a.e3, b.e1);
+  }
+}
+
+// insert (ent, cid) into a sorted three without a branch; ent = +inf is a
+// no-op, and a strict < keeps the earlier (lower) id among equal entries
+__device__ __forceinline__ void insert_top3(Top3& t, float ent, int cid) {
+  const bool lt1 = ent < t.e1, lt2 = ent < t.e2;
+  t.c2 = lt1 ? t.c1 : (lt2 ? cid : t.c2);
+  t.c1 = lt1 ? cid : t.c1;
+  t.e3 = fminf(t.e3, fmaxf(t.e2, ent));
+  t.e2 = fminf(t.e2, fmaxf(t.e1, ent));
+  t.e1 = fminf(t.e1, ent);
 }
 
 template <bool DENSE>
@@ -75,65 +148,77 @@ select_kernel(const float* __restrict__ aabbs, int C,
               const float* __restrict__ dense, Counts dense_counts,
               const long long* __restrict__ dense_sid,
               float* __restrict__ t_out, int* __restrict__ sid_out) {
-  __shared__ float box[6][BOX_TILE];
+  __shared__ float4 box_lo[SELECT_TILE], box_hi[SELECT_TILE];
   extern __shared__ float smem[];
   Tables tb;
   if (DENSE) tb = stage_tables(dense, dense_counts, smem);
 
-  const int ray = blockIdx.x * SELECT_BLOCK + threadIdx.x;
+  const int ray = blockIdx.x * SELECT_RAYS + threadIdx.x / SELECT_LANES;
+  const int lane = threadIdx.x % SELECT_LANES;
   const bool active = ray < n_rays;
-  Ray r = {0.f, 0.f, 0.f, 1.f, 1.f, 1.f};
-  float skip_e = 0.f;
-  int skip_c = 0;
-  if (active) {
-    r = load_ray(o, d, ray);
-    skip_e = skip_e_in[ray];
-    skip_c = skip_c_in[ray];
-  }
+  const int src = active ? ray : 0;   // a group past the end copies ray 0
+  const Ray r = load_ray(o, d, src);
+  const float skip_e = skip_e_in[src];
+  const int skip_c = skip_c_in[src];
   const float ix = 1.f / nz30(r.dx), iy = 1.f / nz30(r.dy), iz = 1.f / nz30(r.dz);
-  float e1 = INFINITY, e2 = INFINITY, e3 = INFINITY;
-  int c1 = 0, c2 = 0;
-  for (int base = 0; base < C; base += BOX_TILE) {
-    const int n = min(BOX_TILE, C - base);
+  Top3 best = {INFINITY, INFINITY, INFINITY, 0, 0};
+  for (int base = 0; base < C; base += SELECT_TILE) {
+    const int n = min(SELECT_TILE, C - base);
     __syncthreads();
-    for (int k = threadIdx.x; k < 6 * n; k += SELECT_BLOCK)
-      box[k / n][k % n] = aabbs[(k / n) * C + base + k % n];
+    for (int k = threadIdx.x; k < n; k += SELECT_BLOCK) {
+      const float* b = aabbs + base + k;
+      box_lo[k] = make_float4(b[0], b[C], b[2 * C], 0.f);
+      box_hi[k] = make_float4(b[3 * C], b[4 * C], b[5 * C], 0.f);
+    }
     __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < n; ++j) {
-      const float x1 = (box[0][j] - r.ox) * ix, x2 = (box[3][j] - r.ox) * ix;
-      const float y1 = (box[1][j] - r.oy) * iy, y2 = (box[4][j] - r.oy) * iy;
-      const float z1 = (box[2][j] - r.oz) * iz, z2 = (box[5][j] - r.oz) * iz;
+#pragma unroll 4
+    for (int j = lane; j < n; j += SELECT_LANES) {
+      const float4 lo = box_lo[j], hi = box_hi[j];
+      const float x1 = (lo.x - r.ox) * ix, x2 = (hi.x - r.ox) * ix;
+      const float y1 = (lo.y - r.oy) * iy, y2 = (hi.y - r.oy) * iy;
+      const float z1 = (lo.z - r.oz) * iz, z2 = (hi.z - r.oz) * iz;
       const float tmin = fmaxf(fmaxf(fminf(x1, x2), fminf(y1, y2)), fminf(z1, z2));
       const float tmax = fminf(fminf(fmaxf(x1, x2), fmaxf(y1, y2)), fmaxf(z1, z2));
-      if (!(tmax >= tmin && tmax > 0.f)) continue;
       const float ent = fmaxf(tmin, 0.f);
       const int cid = base + j;
-      if (!(ent > skip_e || (ent == skip_e && cid > skip_c))) continue;
-      if (ent < e1) {
-        e3 = e2; e2 = e1; c2 = c1; e1 = ent; c1 = cid;
-      } else if (ent < e2) {
-        e3 = e2; e2 = ent; c2 = cid;
-      } else if (ent < e3) {
-        e3 = ent;
-      }
+      // & and | on purpose: no short-circuit, so no branch in the loop
+      const bool take = (tmax >= tmin) & (tmax > 0.f) &
+                        ((ent > skip_e) | ((ent == skip_e) & (cid > skip_c)));
+      insert_top3(best, take ? ent : INFINITY, cid);
     }
   }
-  if (!active) return;
-  ent_out[ray] = e1;
-  ent_out[n_rays + ray] = e2;
-  ent_out[2 * n_rays + ray] = e3;
-  cid_out[ray] = c1;
-  cid_out[n_rays + ray] = c2;
+  float bt = INFINITY;
+  int bc = -1;
+  if (DENSE) nearest_scan(tb, r, lane, SELECT_LANES, bt, bc);
+  // fold the group's lanes (every lane of the warp takes part)
+#pragma unroll
+  for (int off = 1; off < SELECT_LANES; off <<= 1) {
+    Top3 other;
+    other.e1 = __shfl_xor_sync(PROBE_MASK, best.e1, off);
+    other.c1 = __shfl_xor_sync(PROBE_MASK, best.c1, off);
+    other.e2 = __shfl_xor_sync(PROBE_MASK, best.e2, off);
+    other.c2 = __shfl_xor_sync(PROBE_MASK, best.c2, off);
+    other.e3 = __shfl_xor_sync(PROBE_MASK, best.e3, off);
+    merge_top3(best, other);
+    if (DENSE) {
+      const float ot = __shfl_xor_sync(PROBE_MASK, bt, off);
+      const int oc = __shfl_xor_sync(PROBE_MASK, bc, off);
+      take_min(ot, oc, bt, bc);
+    }
+  }
+  if (!active || lane != 0) return;
+  ent_out[ray] = best.e1;
+  ent_out[n_rays + ray] = best.e2;
+  ent_out[2 * n_rays + ray] = best.e3;
+  cid_out[ray] = best.c1;
+  cid_out[n_rays + ray] = best.c2;
   if (DENSE) {
-    float bt = INFINITY;
-    int bc = -1;
-    nearest_scan(tb, r, 0, 1, bt, bc);
     int sid = -1;
     if (bc >= 0) {
       const int fam = bc >> SLOT_BITS;
       int off = 0;
-      for (int f = 0; f < fam; ++f) off += tb.n[f];
+#pragma unroll
+      for (int f = 0; f < N_FAMS; ++f) off += f < fam ? tb.n[f] : 0;
       sid = static_cast<int>(dense_sid[off + (bc & SLOT_MASK)]);
     }
     t_out[ray] = bt;
@@ -217,7 +302,7 @@ int launch_select(const float* aabbs, int C, const float* o, const float* d,
   int floats = 0;
   if (DENSE)
     for (int f = 0; f < N_FAMS; ++f) floats += counts.n[f] * fam_width(f);
-  const int blocks = (n_rays + SELECT_BLOCK - 1) / SELECT_BLOCK;
+  const int blocks = (n_rays + SELECT_RAYS - 1) / SELECT_RAYS;
   select_kernel<DENSE><<<blocks, SELECT_BLOCK, sizeof(float) * floats,
                          static_cast<cudaStream_t>(stream)>>>(
       aabbs, C, o, d, skip_e, skip_c, n_rays, ent_out, cid_out, dense, counts,

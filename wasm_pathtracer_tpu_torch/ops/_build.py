@@ -41,6 +41,8 @@ _SIGNATURES = {
     "wpt_probe_blocks": [_P, _I, _I, _P, _P, _P, _I, _P, _P],
     # tris, T, o, d, R, packed scratch, t_out, slot_out, stream
     "wpt_dense_tri_nearest": [_P, _I, _P, _P, _I, _P, _P, _P, _P],
+    # T, R, int[8] out
+    "wpt_dense_tri_launch_shape": [_I, _I, _P],
 }
 
 

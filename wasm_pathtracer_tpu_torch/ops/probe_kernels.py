@@ -16,7 +16,10 @@ carry the cluster traversal:
 
 Beside each is its plain PyTorch version (``*_reference``): the slab
 test and lexicographic reductions of the JAX flat wavefront, and the
-gathered per-ray block test of ``ops.cluster``.  A wrapper takes the
+gathered per-ray block test of ``ops.cluster``.  The select kernels
+split a ray's boxes over several lanes and merge the lanes' candidates
+(:func:`merge_top3`; :func:`select_blocks_lanes_reference` is that route
+in plain PyTorch, for the tests).  A wrapper takes the
 plain version for tensors on the CPU; for CUDA tensors it launches the
 kernel, and raises if the kernel does not build or launch.  Each wrapper
 counts its launches in ``<wrapper>.launches``.
@@ -47,18 +50,24 @@ def dense_scan_ok(prep) -> bool:
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def select_blocks_reference(cs: cl.ClusterSet, o, d, skip_e, skip_c):
-    """Plain PyTorch version of :func:`select_blocks`."""
-    C = cs.num_clusters
-    ent = cl._rays_vs_boxes(o, d, cs.lo, cs.hi)                # (R, C)
-    cid = torch.arange(C, device=o.device)
+def _unvisited_entries(cs: cl.ClusterSet, o, d, skip_e, skip_c):
+    """(R, C) box entries, +inf on a miss and at or before the lex cursor."""
+    ent = cl._rays_vs_boxes(o, d, cs.lo, cs.hi)
+    cid = torch.arange(cs.num_clusters, device=o.device)
     se, sc = skip_e[:, None], skip_c[:, None]
-    ent = torch.where((ent > se) | ((ent == se) & (cid > sc)), ent, torch.inf)
+    return torch.where((ent > se) | ((ent == se) & (cid > sc)), ent, torch.inf)
+
+
+def _top3(ent, cid):
+    """The two lexicographically smallest (entry, id) pairs of each row of
+    ``ent`` (R, n), whose columns carry the ascending ids ``cid`` (n,), and
+    the entry of the third: (e1, c1, e2, c2, e3)."""
+    top = cid[-1]
 
     def lexmin(ent):
         # among minimal entries, the lowest id
         e = ent.amin(dim=1)
-        c = torch.where(ent == e[:, None], cid, C).amin(dim=1).clamp(max=C - 1)
+        c = torch.where(ent == e[:, None], cid, top + 1).amin(dim=1).clamp(max=top)
         rest = torch.where((ent > e[:, None]) |
                            ((ent == e[:, None]) & (cid > c[:, None])),
                            ent, torch.inf)
@@ -67,6 +76,46 @@ def select_blocks_reference(cs: cl.ClusterSet, o, d, skip_e, skip_c):
     e_cur, c_cur, ent1 = lexmin(ent)
     e_b, c_b, ent2 = lexmin(ent1)
     return e_cur, c_cur, e_b, c_b, ent2.amin(dim=1)
+
+
+def select_blocks_reference(cs: cl.ClusterSet, o, d, skip_e, skip_c):
+    """Plain PyTorch version of :func:`select_blocks`."""
+    return _top3(_unvisited_entries(cs, o, d, skip_e, skip_c),
+                 torch.arange(cs.num_clusters, device=o.device))
+
+
+def merge_top3(a, b):
+    """The (e1, c1, e2, c2, e3) of the union of two disjoint sets of
+    boxes from each set's own: the CUDA kernel's merge of two lanes.  The
+    pairs compare lexicographically; the third needs no id.  Exact, since
+    the three smallest of a union lie among each part's three smallest."""
+    def lex_less(e, c, f, g):
+        return (e < f) | ((e == f) & (c < g))
+
+    swap = lex_less(b[0], b[1], a[0], a[1])
+    a, b = ([torch.where(swap, y, x) for x, y in zip(a, b)],
+            [torch.where(swap, x, y) for x, y in zip(a, b)])
+    # a's first is the smallest; the second is a's second or b's first
+    take = lex_less(b[0], b[1], a[2], a[3])
+    return (a[0], a[1], torch.where(take, b[0], a[2]), torch.where(take, b[1], a[3]),
+            torch.where(take, torch.minimum(a[2], b[2]), torch.minimum(a[4], b[0])))
+
+
+def select_blocks_lanes_reference(cs: cl.ClusterSet, o, d, skip_e, skip_c, lanes: int):
+    """:func:`select_blocks` as the CUDA kernel computes it, in plain
+    PyTorch (used by the tests only): lane j of ``lanes`` selects among
+    boxes j, j + lanes, ..., and the lanes merge in xor-butterfly order."""
+    ent = _unvisited_entries(cs, o, d, skip_e, skip_c)
+    cid = torch.arange(cs.num_clusters, device=o.device)
+    none = (torch.full_like(ent[:, 0], torch.inf), torch.zeros_like(skip_c))
+    # a lane past the last box holds no candidate
+    part = [_top3(ent[:, j::lanes], cid[j::lanes]) if j < cs.num_clusters
+            else (none[0], none[1], none[0], none[1], none[0]) for j in range(lanes)]
+    off = 1
+    while off < lanes:
+        part = [merge_top3(part[j], part[j ^ off]) for j in range(lanes)]
+        off *= 2
+    return part[0]
 
 
 def select_scan_reference(cs: cl.ClusterSet, prep, o, d, skip_e, skip_c):
