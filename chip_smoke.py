@@ -17,21 +17,29 @@ its last line):
    rays).  Hits agree on > 99.9% of rays, t agrees within rtol 1e-5 /
    atol 1e-4 where both hit, shape ids agree on > 99.5% (the tolerances
    of the JAX package's own kernel tests; the kernel contracts to FMA,
-   the plain version does not).  Kernel and plain device times at
+   the plain version does not; the kernel's triangles are staged and its
+   torus square roots approximate).  Kernel and plain device times at
    16,384 rays on the museum (``cuda_ms``: CUDA events around a CUDA
    graph of the kernel's calls, and around eager calls of the plain
-   version).
+   version).  Then the same checks and times on the 16,384 rays K1 gets
+   in the middle call of one run of the main path (phase 5's
+   configuration; ``headline_inputs`` records them by wrapping the
+   wrappers in this script), with the torus marches they need.
 4. K2, the any-hit shadow kernel, on shadow rays from those rays' hits
    toward random light points.  From origins within the scenes'
    geometry, verdicts agree on > 99.9% of rays.  From far origins
    (grazing ground hits 50 to ~10^5 units away) every verdict that
    differs must be a float32 rounding tie: the plain version's own
    verdict flips when the origin moves by at most 16 ulp (and >= 98%
-   agree).
+   agree).  Then the main path's own shadow rays, as for K1 (> 99.9%
+   agree), with the occluded share and the primitive tests and marches
+   a ray needs up to the one that decides it (where K2's lanes stop).
 5. The main path at full width: the museum, 512x512, NEE, 8 bounces,
    S = 2,621,440 paths through ``render_queue`` with 16,384 lanes.
    Every sample is counted once, the radiance is finite, and each
-   kernel's launch count equals the loop's iteration count.
+   kernel's launch count equals the loop's iteration count.  Then a
+   short run (S = 131,072) under ``torch.profiler``: device kernels per
+   iteration and the device's busy share.
 6. GPU against CPU: pcg3d streams bit-identical; then end to end, the
    museum at 32x32, 1 spp, 256 lanes, through the kernels on the card
    and the plain versions on the CPU: per-path radiance agrees (rtol
@@ -116,23 +124,29 @@ call that was timed: the larger of its bytes (each input and output
 once) over 3.35 TB/s and its float32 operations over 67 TFLOP/s, the
 H100's published rates.  Operations are counted from the inputs with the
 per-test costs in ``FLOPS`` (one per add, multiply, compare, min, max,
-divide or square root of the test as written in ``csrc``); torus marches
-are counted at the steps these rays take (``torus_work``), and K8 at the
-TPU kernel's 78 per pair.  No single PyTorch call computes any of the
-eight functions, so ``library_ms`` is null.
+divide or square root the function needs; what depends on one side
+only, as a triangle's set-up, once for that side; one triangle count for
+every kernel); torus marches are counted at the steps these rays take
+(``torus_pairs``), only where the box entry lies before the ray's best
+hit among the other families (K1, K3) or before the light (K2), and K2
+up to the primitive that decides each ray (``occluded_work``).  No single
+PyTorch call computes any of the eight functions, so ``library_ms`` is
+null.
 
 The last lines of standard output are a JSON record of the paths, the
 card's name and power limit, a JSON record of each kernel (launches in
 the run of the path it serves, max |kernel - plain|, kernel, plain and
 bound ms at the main path's shape: museum rays for K1 and K2, mesh70k for
-the others; ``other_shapes`` holds the same four numbers at cloud300k)
-and a JSON status line.  The whole script takes about two and a half
+the others; ``other_shapes`` holds the same four numbers on the main
+path's own rays for K1 and K2, at cloud300k for the others) and a JSON
+status line.  The whole script takes about two and a half
 minutes on an NVIDIA H100 80GB HBM3 at 700 W (110-152 s from a clean
 checkout, the builds included; 42-57 s of it are the four CLI processes).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import struct
@@ -170,23 +184,24 @@ def cuda_ms(fn, n, graph=True):
     """ms of one ``fn()``, by CUDA events around ``n`` calls.
 
     With ``graph`` (the kernels) the calls are captured in a CUDA graph
-    and the events stand around five replays of it: inside a graph the
-    kernels follow each other without waiting for the host, whose Python
-    takes longer per call than most of these kernels run.  The time of a
-    call is then its kernels' device time and the ~0.002 ms between two
-    launches of a graph.  Without (the plain versions: hundreds of small
-    kernels a call, some with a host read between them that a graph
-    cannot hold) the calls run eagerly, and the time is the wall time of
-    an eager call on the device's clock: it includes what the device
-    waits for the host, so it is what a caller of the plain version
-    would wait, not the sum of its kernels.  (``torch.profiler``'s kernel
-    durations would leave the gaps out, but in a process that has run
-    for a while its traces come back without some of their kernels.)
-    Raises when the events measured nothing."""
+    and events stand around each of five replays of it; the time is the
+    median replay over ``n``.  Inside a graph the kernels follow each
+    other without waiting for the host, whose Python takes longer per
+    call than most of these kernels run, so the time of a call is its
+    kernels' device time and the ~0.002 ms between two launches of a
+    graph; the median leaves out a replay that the host started late.
+    Without (the plain versions: hundreds of small kernels a call, some
+    with a host read between them that a graph cannot hold) the calls
+    run eagerly, and the time is the wall time of an eager call on the
+    device's clock: it includes what the device waits for the host, so it
+    is what a caller of the plain version would wait, not the sum of its
+    kernels.  (``torch.profiler``'s kernel durations would leave the gaps
+    out, but in a process that has run for a while its traces come back
+    without some of their kernels.)  Raises when the events measured
+    nothing."""
     import torch
     fn()
     torch.cuda.synchronize()
-    run, runs = fn, n
     if graph:
         captured = torch.cuda.CUDAGraph()
         with torch.cuda.graph(captured):
@@ -194,14 +209,23 @@ def cuda_ms(fn, n, graph=True):
                 fn()
         captured.replay()
         torch.cuda.synchronize()
-        run, runs = captured.replay, 5
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(runs):
-        run()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (runs * n if graph else runs)
+        times = []
+        for _ in range(5):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            captured.replay()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / n)
+        ms = sorted(times)[2]
+    else:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / n
     if not ms > 0:
         raise RuntimeError("the CUDA events around the calls measured no time")
     return ms
@@ -209,11 +233,19 @@ def cuda_ms(fn, n, graph=True):
 
 PEAK_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3
-# operations of one ray-primitive test as csrc/scene_families.cuh writes
-# it, by family; "box" is one slab test, "sdf" one torus march step,
-# "newton" one polish step, "sweep" K8's pair with the plane precomputed
-FLOPS = {0: 19, 1: 30, 2: 113, 4: 27, 5: 15, "box": 27, "sdf": 22, "newton": 45,
-         "sweep": 78}
+# Operations of one ray-primitive test, by family: one per add, multiply,
+# compare, min, max, divide or square root that the function needs.  What
+# depends on one side only is charged once for that side: a triangle's
+# edges, normal, 1 / |n| and edge planes ("tri_setup") once per triangle
+# per call, and the ray's three direction reciprocals ("recip") once per
+# ray that meets a slab test.  "tri" is the (ray, triangle) pair in the
+# staged form (csrc/triangle_stage.cuh): n.d 5, its clamp 1, n.v0 - n.o 6,
+# the division 1, the hit point 6, three edge tests 3 x 7, t > 0 and the
+# fold 2 = 42; the same count serves every kernel that tests triangles.
+# "aarect" and "box" (a torus' bounding slab) are slab tests without the
+# reciprocals; "sdf" is one torus march step, "newton" one polish step.
+FLOPS = {0: 19, 1: 30, 2: 42, 4: 24, 5: 15, "tri_setup": 88, "recip": 3,
+         "box": 24, "sdf": 22, "newton": 45}
 
 
 def bound(flops, n_bytes):
@@ -223,16 +255,14 @@ def bound(flops, n_bytes):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def torus_work(rows, o, d, t_max=None):
-    """Operations the torus tests of (R, 3) rays against ``rows`` (n, 5)
-    need on these inputs: a box test per pair, then for each pair whose
-    box is hit (before ``t_max`` (R,), if given) the march steps and
-    Newton steps taken until they reach their fixed point, as
-    ``torus_march`` in ``csrc/scene_families.cuh`` exits."""
+def torus_pairs(rows, o, d):
+    """Per (ray, torus) pair of (R, 3) rays and ``rows`` (n, 5): the box
+    entry t_lo (+inf where the ray misses the box) and the operations of
+    the march and Newton steps taken until they reach their fixed point,
+    as ``torus_march`` in ``csrc/scene_families.cuh`` exits (0 where the
+    box is missed)."""
     import torch
     from wasm_pathtracer_tpu_torch.ops import intersect as isx
-    if rows.shape[0] == 0:
-        return 0
     lo = o[:, None, :] - rows[None, :, 0:3]
     ld = d[:, None, :]
     big_r, small_r = rows[None, :, 3], rows[None, :, 4]
@@ -243,8 +273,6 @@ def torus_work(rows, o, d, t_max=None):
     t_out = torch.maximum(t1, t2).amin(-1)
     t_lo = t_in.clamp(min=1e-4)
     live = (t_in < t_out) & (t_out > 0)
-    if t_max is not None:
-        live &= t_lo < t_max[:, None]
 
     def sdf(t):
         return isx._torus_sdf(lo + ld * t[..., None], big_r, small_r)
@@ -255,13 +283,13 @@ def torus_work(rows, o, d, t_max=None):
     dist = sign0 * sdf(t)
     relaxed = torch.ones_like(live)
     marching = live.clone()
-    n_sdf = 0
+    n_sdf = torch.zeros_like(t_lo, dtype=torch.int64)
     for _ in range(24):
         step = dist * torch.where(relaxed, 1.6, 1.0)
         can = (dist > 1e-4) & (t < t_out)
         t2_ = t + torch.where(can, step, 0.0)
         d2 = sign0 * sdf(t2_)
-        n_sdf += int(marching.sum())
+        n_sdf += marching
         accept = (step <= 1e-4) | (d2 + dist >= step)
         marching &= can | (d2 != dist)
         t = torch.where(accept, t2_, t)
@@ -269,25 +297,110 @@ def torus_work(rows, o, d, t_max=None):
         relaxed = accept
     # a Newton step runs while |f| > 1e-6; four at most (counted as the
     # march leaves them: converged marches take none)
-    n_newton = 4 * int((live & (dist.abs() > 1e-6)).sum())
-    return (o.shape[0] * rows.shape[0] * FLOPS["box"] + n_sdf * FLOPS["sdf"]
-            + n_newton * FLOPS["newton"])
+    n_newton = 4 * (live & (dist.abs() > 1e-6))
+    ops = n_sdf * FLOPS["sdf"] + n_newton * FLOPS["newton"]
+    return torch.where(live, t_lo, torch.inf), ops
 
 
-def scene_flops(tables, o, d, t_max=None):
-    """Operations one whole-scene test of these rays needs (K1, K2, K3's
-    dense half)."""
-    R = o.shape[0]
-    total = sum(R * tables.counts[f] * FLOPS[f] for f in (0, 1, 2, 4, 5))
-    return total + torus_work(tables.family(3), o, d, t_max)
+def family_candidates(tables, o, d):
+    """{family: (R, n) distances} of the non-empty families (plain
+    version's formulas)."""
+    from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
+    return {f: sk._family_distances(f, tables.family(f), o, d)
+            for f in range(6) if tables.counts[f]}
+
+
+def needed_marches(tables, o, d):
+    """(R, n_torus) bool of the tori K1 marches for these rays (those whose
+    box entry is not beyond the ray's best hit among the other families:
+    a torus hit is >= that entry), and the (R, n_torus) operations of
+    each march."""
+    import torch
+    best = torch.full((o.shape[0],), torch.inf, device=o.device)
+    for f, t in family_candidates(tables, o, d).items():
+        if f != 3:
+            best = torch.minimum(best, t.amin(1))
+    t_lo, march = torus_pairs(tables.family(3), o, d)
+    return t_lo <= best[:, None], march
+
+
+def scene_flops(tables, o, d):
+    """Operations the nearest hit of these rays over the whole scene needs
+    (K1, K3's dense half): every pair of the five cheap families, each
+    torus box, and the marches of ``needed_marches``."""
+    R, n = o.shape[0], tables.counts
+    total = sum(R * n[f] * FLOPS[f] for f in (0, 1, 2, 4, 5)) + n[2] * FLOPS["tri_setup"]
+    if n[3] + n[4]:
+        total += R * FLOPS["recip"]
+    if n[3]:
+        go, march = needed_marches(tables, o, d)
+        total += R * n[3] * FLOPS["box"] + int(march[go].sum())
+    return total
+
+
+# the order in which K2 tests the families (csrc/scene_kernels.cu)
+K2_ORDER = (0, 5, 4, 1, 2, 3)
+
+
+def occluded_work(tables, code_of, o, d, dist, light_sid):
+    """What the any-hit query of these shadow rays needs, in K2's order:
+    the light's own primitive first, then the families in ``K2_ORDER``
+    up to and including the first other candidate with
+    t < min(dist, t_exc), which decides the verdict; a torus is marched
+    only when its box entry is before that limit.  Returns (operations,
+    per-ray primitive tests (R,), per-ray marches (R,))."""
+    import torch
+    from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
+    R, n = o.shape[0], tables.counts
+    excl = sk._excl_codes(light_sid, code_of)
+    cand = family_candidates(tables, o, d)
+    costs, is_exc, dists = [], [], []
+    for f in K2_ORDER:
+        if f not in cand:
+            continue
+        t = cand[f]
+        code = (f << sk.SLOT_BITS) + torch.arange(n[f], device=o.device)
+        exc = code[None, :] == excl[:, None]
+        if f == 3:
+            t_lo, march = torus_pairs(tables.family(3), o, d)
+            costs.append((FLOPS["box"], t_lo, march))
+        else:
+            costs.append((FLOPS[f], None, None))
+        is_exc.append(exc)
+        dists.append(t)
+    t_all, exc_all = torch.cat(dists, 1), torch.cat(is_exc, 1)
+    t_exc = torch.where(exc_all, t_all, torch.inf).amin(1)
+    limit = torch.minimum(dist, t_exc)
+    pair, marches = [], []
+    for (c, t_lo, march), exc in zip(costs, is_exc):
+        if t_lo is None:
+            pair.append(torch.full(exc.shape, float(c), device=o.device))
+            marches.append(torch.zeros(exc.shape, device=o.device))
+        else:
+            # the light's own torus is marched in full (t_exc)
+            go = (t_lo < limit[:, None]) | (exc & torch.isfinite(t_lo))
+            pair.append(c + torch.where(go, march, 0).double())
+            marches.append(go.double())
+    pair, marches = torch.cat(pair, 1), torch.cat(marches, 1)
+    first = torch.where(exc_all, torch.inf, t_all) < limit[:, None]
+    # tests up to and including the first occluder; the light's own first
+    upto = (torch.cumsum(first.int(), 1) - first.int()) == 0
+    done = upto | exc_all
+    ops = (pair * done).sum() + n[2] * FLOPS["tri_setup"] + (R * FLOPS["recip"] if n[3] + n[4] else 0)
+    return int(ops), done.sum(1), (marches * done).sum(1)
 
 
 def probe_flops(cs, cidx):
     """Operations one probe round needs: each ray's cluster's real slots
     at their family's cost (mesh70k and the clouds hold triangles only;
-    a torus slot is counted at its box test)."""
-    bt = cs.btype[cidx.long().clamp(0, cs.num_clusters - 1)]
-    return sum(int((bt == f).sum()) * FLOPS.get(f, FLOPS["box"]) for f in cs.families)
+    a torus slot is counted at its box test), and the set-up of every
+    triangle of the clusters probed, once."""
+    import torch
+    c = cidx.long().clamp(0, cs.num_clusters - 1)
+    bt = cs.btype[c]
+    total = sum(int((bt == f).sum()) * FLOPS.get(f, FLOPS["box"]) for f in cs.families)
+    probed = cs.btype[torch.unique(c)]
+    return total + int((probed == 2).sum()) * FLOPS["tri_setup"]
 
 
 # (wrapper, TPU kernel it replaces, CUDA source), K1 to K8
@@ -412,7 +525,7 @@ def test_rays(n, seed, device, camera=None):
 
 def shadow_rays(prep, scene, o, d, seed):
     """Shadow rays from the hits of (o, d) toward random points of random
-    lights, with the light's kernel code as the exclusion (-1 on every
+    lights, with the light's shape id as the exclusion (-1 on every
     tenth ray); rays that miss start from their own origin.  Returns the
     rays and a mask of those whose origin is a hit farther than 50 units
     (beyond the scenes' geometry: grazing hits on a ground plane, up to
@@ -437,21 +550,21 @@ def shadow_rays(prep, scene, o, d, seed):
     dist = torch.linalg.norm(to_l, dim=-1)
     dd = (to_l / torch.clamp(dist, min=1e-30)[:, None]).contiguous()
     oo = (p + dd * 2e-4).contiguous()
-    excl = prep.code_of[lsid].to(torch.int32)
-    excl[::10] = -1
-    return oo, dd, dist.contiguous(), excl.contiguous(), hit & (t >= 50.0)
+    lsid[::10] = -1
+    return oo, dd, dist.contiguous(), lsid.contiguous(), hit & (t >= 50.0)
 
 
-def rounding_ties(tables, o, d, dist, excl, max_ulps=16, n_jitter=2048, seed=0):
+def rounding_ties(tables, code_of, o, d, dist, light_sid, max_ulps=16, n_jitter=2048,
+                  seed=0):
     """(R,) bool: shadow rays whose verdict float32 does not settle.  The
     plain version is evaluated with each origin coordinate moved by up
     to ``max_ulps`` units in the last place (``n_jitter`` random moves);
     a ray is a tie when both verdicts occur.  The kernel (the Pallas
-    kernel's formulas, FMA-contracted) and the plain version (the dense
-    formulas, separately rounded) compute t = (n.v0 - n.o) / (n.d) and
-    o + d t with different roundings; from an origin 10^4 units out the
-    cancellation leaves errors of several ulp of the origin, more at
-    grazing angles."""
+    kernel's formulas, FMA-contracted, triangles in the staged form) and
+    the plain version (the dense formulas, separately rounded) compute
+    t = (n.v0 - n.o) / (n.d) and o + d t with different roundings; from
+    an origin 10^4 units out the cancellation leaves errors of several
+    ulp of the origin, more at grazing angles."""
     import torch
     from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
     R = o.shape[0]
@@ -467,8 +580,8 @@ def rounding_ties(tables, o, d, dist, excl, max_ulps=16, n_jitter=2048, seed=0):
     def rep(x):
         return x[None].expand(n_jitter, *x.shape).reshape(-1, *x.shape[1:])
 
-    v = sk.fused_occluded_reference(tables, oj, rep(d), rep(dist),
-                                    rep(excl)).view(n_jitter, R)
+    v = sk.fused_occluded_reference(tables, oj, rep(d), rep(dist), rep(light_sid),
+                                    code_of).view(n_jitter, R)
     return v.any(0) & ~v.all(0)
 
 
@@ -476,41 +589,143 @@ def rounding_ties(tables, o, d, dist, excl, max_ulps=16, n_jitter=2048, seed=0):
 # phases
 # ---------------------------------------------------------------------------
 
-def phase_kernel_k1(device, record):
+# the K1 and K2 calls of a museum headline run (of 345 each) whose inputs
+# phases k1 and k2 time: the middle one, when the lanes hold a steady mix
+# of camera and bounce rays
+HEADLINE_CALL = 172
+
+
+@functools.cache
+def headline_inputs(device):
+    """{wrapper name: its arguments} of call ``HEADLINE_CALL`` of K1 and of
+    K2 in one run of the main path (the museum headline), recorded by
+    wrapping the two wrappers in this script for that run."""
     import torch
+    from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+    from wasm_pathtracer_tpu_torch.models import scenes
+    from wasm_pathtracer_tpu_torch.models.camera import initial_camera
+    from wasm_pathtracer_tpu_torch.ops import integrator, trace
+    from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
+    h = HEADLINE
+    scene = scenes.museum(device)
+    prep = trace.prepare(scene)
+    st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=h["max_bounces"])
+    saved = {name: getattr(sk, name) for name in ("fused_nearest", "fused_occluded")}
+    got = {}
+
+    def spy(name, fn):
+        calls = [0]
+
+        def wrapped(*args):
+            if calls[0] == HEADLINE_CALL:
+                got[name] = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                  for a in args)
+            calls[0] += 1
+            return fn(*args)
+        # the wrapper counts its launches on whatever its module name holds
+        wrapped.launches = fn.launches
+        return wrapped
+
+    try:
+        for name, fn in saved.items():
+            setattr(sk, name, spy(name, fn))
+        integrator.render_queue(prep, scene, st, initial_camera(0, device),
+                                headline_queue(device, h["S"]), h["width"], h["height"],
+                                4, h["B"])
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in saved.items():
+            setattr(sk, name, fn)
+    if set(got) != set(saved):
+        raise AssertionError(f"the headline run made fewer than {HEADLINE_CALL + 1} calls")
+    return got
+
+
+def check_nearest(tables, o, d, sid_map, what):
+    """K1 against its plain version on (o, d): hits agree on > 99.9% of
+    rays, t within rtol 1e-5 / atol 1e-4 where both hit, shape ids on
+    > 99.5%.  Returns (max |dt|, hit rate)."""
+    import torch
+    from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
+    t_k, s_k = sk.fused_nearest(tables, o, d, sid_map)
+    t_p, s_p = sk.fused_nearest_reference(tables, o, d, sid_map)
+    torch.cuda.synchronize()
+    hit_k, hit_p = s_k >= 0, s_p >= 0
+    both = hit_k & hit_p
+    hit_agree = (hit_k == hit_p).float().mean().item()
+    err = (t_k[both] - t_p[both]).abs().max().item() if both.any() else 0.0
+    t_ok = torch.allclose(t_k[both], t_p[both], rtol=1e-5, atol=1e-4)
+    sid_agree = (s_k == s_p)[both].float().mean().item() if both.any() else 1.0
+    misses_ok = bool(torch.isinf(t_k[~hit_k]).all())
+    log(f"K1 {what}: hit agreement {hit_agree:.6f}, max |dt| {err:.3g}, shape-id "
+        f"agreement {sid_agree:.6f}, hit rate {hit_p.float().mean().item():.3f}")
+    if not (hit_agree > 0.999 and t_ok and sid_agree > 0.995 and misses_ok):
+        raise AssertionError(f"K1 disagrees with its plain version on {what}")
+    return err, hit_p.float().mean().item()
+
+
+def phase_kernel_k1(device, record):
     from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
     from wasm_pathtracer_tpu_torch.ops import trace
     worst = 0.0
+    rec = record.setdefault("fused_nearest", {})
     for i, (name, scene) in enumerate(smoke_scenes(device).items()):
         prep = trace.prepare(scene)
         tables = prep.tables
         o, d = test_rays(16_384 + 37, 100 + i, device)
-        t_k, f_k, s_k = sk.fused_nearest(tables, o, d)
-        t_p, f_p, s_p = sk.fused_nearest_reference(tables, o, d)
-        torch.cuda.synchronize()
-        hit_k, hit_p = f_k >= 0, f_p >= 0
-        both = hit_k & hit_p
-        hit_agree = (hit_k == hit_p).float().mean().item()
-        err = (t_k[both] - t_p[both]).abs().max().item() if both.any() else 0.0
-        t_ok = torch.allclose(t_k[both], t_p[both], rtol=1e-5, atol=1e-4)
-        sid_agree = ((f_k == f_p) & (s_k == s_p))[both].float().mean().item()
-        log(f"K1 {name}: hit agreement {hit_agree:.6f}, max |dt| {err:.3g}, "
-            f"shape-id agreement {sid_agree:.6f}, hit rate "
-            f"{hit_p.float().mean().item():.3f}")
-        if not (hit_agree > 0.999 and t_ok and sid_agree > 0.995):
-            raise AssertionError(f"K1 disagrees with its plain version on {name}")
-        worst = max(worst, err)
+        worst = max(worst, check_nearest(tables, o, d, prep.sid_of_slot, name)[0])
         if name == "museum":
             o16, d16 = o[:16_384].contiguous(), d[:16_384].contiguous()
-            ms = cuda_ms(lambda: sk.fused_nearest(tables, o16, d16), 50)
-            plain_ms = cuda_ms(lambda: sk.fused_nearest_reference(tables, o16, d16), 5, graph=False)
-            b_ms, b_by = bound(scene_flops(tables, o16, d16),
-                               4 * tables.flat.numel() + 16_384 * (24 + 12))
-    log(f"K1 museum B=16384: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{b_ms:.5f} ms by {b_by}")
-    record.setdefault("fused_nearest", {}).update(max_abs_err=worst, ms=ms,
-                                                  plain_ms=plain_ms, bound_ms=b_ms,
-                                                  bound_by=b_by)
+            rec.update(timed_nearest(tables, o16, d16, prep.sid_of_slot, "museum"))
+    log(f"scene kernels built as {sk.launch_shape()}")
+
+    # the rays of one call of the main path
+    tables, o, d, sid_map = headline_inputs(device)["fused_nearest"]
+    err, rate = check_nearest(tables, o, d, sid_map, f"headline call {HEADLINE_CALL}")
+    worst = max(worst, err)
+    m = needed_marches(tables, o, d)[0].sum(1).float()
+    log(f"K1 headline rays: {o.shape[0]} rays, hit rate {rate:.3f}, marches per ray "
+        f"{m.mean().item():.4f} (max {int(m.max())}), rays with a march "
+        f"{(m > 0).float().mean().item():.4f}")
+    rec["other_shapes"] = {"headline_rays": timed_nearest(tables, o, d, sid_map,
+                                                          "headline rays")}
+    rec["max_abs_err"] = worst
+
+
+def timed_nearest(tables, o, d, sid_map, what):
+    """Kernel, plain and bound ms of K1 on (o, d)."""
+    from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
+    ms = cuda_ms(lambda: sk.fused_nearest(tables, o, d, sid_map), 50)
+    plain_ms = cuda_ms(lambda: sk.fused_nearest_reference(tables, o, d, sid_map), 5,
+                       graph=False)
+    R = o.shape[0]
+    b_ms, b_by = bound(scene_flops(tables, o, d),
+                       4 * tables.flat.numel() + 8 * sum(tables.counts) + R * (24 + 12))
+    log(f"K1 {what} B={R}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms by {b_by} ({100 * b_ms / ms:.1f}% of the kernel's time); "
+        f"SM clock now / max {sm_clocks()}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def timed_occluded(tables, code_of, args, what):
+    """Kernel, plain and bound ms of K2 on ``args`` (o, d, dist,
+    light_sid), and what its early exit saves there."""
+    from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
+    ms = cuda_ms(lambda: sk.fused_occluded(tables, *args, code_of), 50)
+    plain_ms = cuda_ms(lambda: sk.fused_occluded_reference(tables, *args, code_of), 5,
+                       graph=False)
+    R = args[0].shape[0]
+    ops, tests, marches = occluded_work(tables, code_of, *args)
+    b_ms, b_by = bound(ops, 4 * tables.flat.numel() + 4 * code_of.numel()
+                       + R * (24 + 4 + 8 + 1))
+    occ = sk.fused_occluded_reference(tables, *args, code_of)
+    log(f"K2 {what} B={R}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms by {b_by} ({100 * b_ms / ms:.1f}% of the kernel's time); "
+        f"occluded {occ.float().mean().item():.4f}, primitive tests per ray up to the "
+        f"deciding one {tests.float().mean().item():.2f} of {sum(tables.counts)}, "
+        f"marches per ray {marches.float().mean().item():.4f}; SM clock now / max "
+        f"{sm_clocks()}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def phase_kernel_k2(device, record):
@@ -519,18 +734,20 @@ def phase_kernel_k2(device, record):
     float32 ulp of the origin is 4e-6 to 8e-3): every verdict that
     differs is a rounding tie (``rounding_ties``), and >= 98% agree.
     Ties are common there (the origin sits on the ground plane within an
-    ulp), so the share of ties among far rays is printed beside them."""
+    ulp), so the share of ties among far rays is printed beside them.
+    Then the rays of one call of the main path, held to the near rule."""
     import torch
     from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
     from wasm_pathtracer_tpu_torch.ops import trace
     worst = 0.0
+    rec = record.setdefault("fused_occluded", {})
     for i, (name, scene) in enumerate(smoke_scenes(device).items()):
         prep = trace.prepare(scene)
-        tables = prep.tables
+        tables, code_of = prep.tables, prep.code_of
         o, d = test_rays(16_384 + 37, 200 + i, device)
-        so, sd, dist, excl, far = shadow_rays(prep, scene, o, d, 300 + i)
-        occ_k = sk.fused_occluded(tables, so, sd, dist, excl)
-        occ_p = sk.fused_occluded_reference(tables, so, sd, dist, excl)
+        so, sd, dist, lsid, far = shadow_rays(prep, scene, o, d, 300 + i)
+        occ_k = sk.fused_occluded(tables, so, sd, dist, lsid, code_of)
+        occ_p = sk.fused_occluded_reference(tables, so, sd, dist, lsid, code_of)
         torch.cuda.synchronize()
         diff = occ_k != occ_p
         n_near, n_far = int((~far).sum()), int(far.sum())
@@ -538,10 +755,10 @@ def phase_kernel_k2(device, record):
         agree_near = 1.0 - d_near / max(n_near, 1)
         agree_far = 1.0 - d_far / max(n_far, 1)
         idx = torch.nonzero(diff & far)[:, 0]
-        ties = rounding_ties(tables, *(x[idx] for x in (so, sd, dist, excl)))
+        ties = rounding_ties(tables, code_of, *(x[idx] for x in (so, sd, dist, lsid)))
         # how common ties are among far rays in general (256 of them)
         sample = torch.nonzero(far)[:256, 0]
-        base = rounding_ties(tables, *(x[sample] for x in (so, sd, dist, excl)))
+        base = rounding_ties(tables, code_of, *(x[sample] for x in (so, sd, dist, lsid)))
         log(f"K2 {name}: near origins {d_near} of {n_near} differ (agreement "
             f"{agree_near:.6f}); far origins {d_far} of {n_far} differ (agreement "
             f"{agree_far:.6f}), {int(ties.sum())} of them rounding ties, ties among "
@@ -549,29 +766,36 @@ def phase_kernel_k2(device, record):
             f"occluded rate {occ_p.float().mean().item():.3f}")
         for j, tie in list(zip(idx.tolist(), ties.tolist()))[:8]:
             log(f"  differs: |origin| {so[j].abs().max().item():.6g}, light at "
-                f"{dist[j].item():.6g}, excl {int(excl[j])}, kernel "
+                f"{dist[j].item():.6g}, light shape {int(lsid[j])}, kernel "
                 f"{bool(occ_k[j])}, tie {tie}")
         if not (agree_near > 0.999 and agree_far >= 0.98 and bool(ties.all())):
             raise AssertionError(f"K2 disagrees with its plain version on {name}")
         worst = max(worst, diff.float().max().item())
         if name == "museum":
-            args = [x[:16_384].contiguous() for x in (so, sd, dist, excl)]
-            ms = cuda_ms(lambda: sk.fused_occluded(tables, *args), 50)
-            plain_ms = cuda_ms(lambda: sk.fused_occluded_reference(tables, *args), 5, graph=False)
-            # a torus whose box entry lies beyond the light cannot occlude
-            b_ms, b_by = bound(scene_flops(tables, args[0], args[1], t_max=args[2]),
-                               4 * tables.flat.numel() + 16_384 * (24 + 8 + 1))
-    log(f"K2 museum B=16384: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{b_ms:.5f} ms by {b_by}")
-    record.setdefault("fused_occluded", {}).update(max_abs_err=worst, ms=ms,
-                                                   plain_ms=plain_ms, bound_ms=b_ms,
-                                                   bound_by=b_by)
+            args = [x[:16_384].contiguous() for x in (so, sd, dist, lsid)]
+            rec.update(timed_occluded(tables, code_of, args, "museum"))
+
+    tables, o, d, dist, lsid, code_of = headline_inputs(device)["fused_occluded"]
+    occ_k = sk.fused_occluded(tables, o, d, dist, lsid, code_of)
+    occ_p = sk.fused_occluded_reference(tables, o, d, dist, lsid, code_of)
+    torch.cuda.synchronize()
+    agree = (occ_k == occ_p).float().mean().item()
+    log(f"K2 headline call {HEADLINE_CALL}: verdicts agree on {agree:.6f} of "
+        f"{o.shape[0]} rays")
+    if not agree > 0.999:
+        raise AssertionError("K2 disagrees with its plain version on the headline's rays")
+    worst = max(worst, (occ_k != occ_p).float().max().item())
+    rec["other_shapes"] = {"headline_rays": timed_occluded(tables, code_of,
+                                                           (o, d, dist, lsid),
+                                                           "headline rays")}
+    rec["max_abs_err"] = worst
 
 
 def busy_share(fn, kernels):
-    """Share of the wall time of ``fn()`` in which the device ran a
-    kernel: summed kernel durations from ``torch.profiler`` over the host
-    clock (the profiler's own overhead is in the wall time).  ``kernels``
+    """(share, kernels): the share of the wall time of ``fn()`` in which
+    the device ran a kernel, summed kernel durations from
+    ``torch.profiler`` over the host clock (the profiler's own overhead is
+    in the wall time), and the number of device kernels the trace holds.  ``kernels``
     maps a wrapper's name to the name of the CUDA kernel it launches: the
     trace must hold each as often as the wrapper counted launches in
     ``fn()``, else it lost kernels and the share would read too low.  Such
@@ -602,12 +826,13 @@ def busy_share(fn, kernels):
     else:
         raise RuntimeError("three traces in a row lost kernels of the loop")
     total = sum(us for _, us in by_name.values())
+    n_kernels = sum(n for n, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]
     log(f"device time {total / 1e3:.1f} ms of {1e3 * wall:.1f} ms wall in "
-        f"{sum(n for n, _ in by_name.values())} kernels ({traced} as launched); "
+        f"{n_kernels} kernels ({traced} as launched); "
         "top: " + "; ".join(f"{name[:48]} x{n} {us / 1e3:.1f} ms"
                             for name, (n, us) in top))
-    return total / 1e6 / wall
+    return total / 1e6 / wall, n_kernels
 
 
 def run_queue(what, queue_fn, prep, scene, st, cam, h, device, **kw):
@@ -657,12 +882,24 @@ def phase_main_path(device, record):
     h = HEADLINE
     scene = scenes.museum(device)
     st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=h["max_bounces"])
+    prep, cam = trace.prepare(scene), initial_camera(0, device)
     launches, iters, rec = run_queue("main path: museum", integrator.render_queue,
-                                     trace.prepare(scene), scene, st,
-                                     initial_camera(0, device), h, device)
+                                     prep, scene, st, cam, h, device)
     expect_launches(launches, iters, ("fused_nearest", "fused_occluded"))
     for name in ("fused_nearest", "fused_occluded"):
         record.setdefault(name, {})["launches"] = launches[name]
+    # device kernels per iteration, and the device's busy share, in a short run
+    short = headline_queue(device, 8 * h["B"])
+    short_iters = []
+    rec["device_busy_share"], n_kernels = busy_share(
+        lambda: short_iters.append(integrator.render_queue(
+            prep, scene, st, cam, short, h["width"], h["height"], 3, h["B"],
+            return_iters=True)[3]),
+        {"fused_nearest": "fused_nearest_kernel", "fused_occluded": "fused_occluded_kernel"})
+    rec["kernels_per_iteration"] = n_kernels / short_iters[-1]
+    log(f"main path: {rec['kernels_per_iteration']:.1f} device kernels per iteration "
+        f"({short_iters[-1]} iterations, S={short.numel()}), device busy "
+        f"{100 * rec['device_busy_share']:.1f}% of wall time under the profiler")
     record["main_path"] = rec
 
 
@@ -947,7 +1184,7 @@ def phase_cluster_kernels(device, record):
         log(f"{name} B=16384 device ms (kernel, plain): " + ", ".join(
             f"{k} {ms:.4f} / {pms:.4f}" for k, (ms, pms) in times.items()))
         C, G, B = cs.num_clusters, cs.group, 16_384
-        slab = B * C * FLOPS["box"]
+        slab = B * (C * FLOPS["box"] + FLOPS["recip"])
         rays, boxes, table = B * 24, 4 * 6 * C, 4 * cs.table.numel()
         probe = probe_flops(cs, a)
         bounds = {
@@ -1012,7 +1249,7 @@ def phase_kernel_k8(device, record):
         o16, d16 = o[:16_384].contiguous(), d[:16_384].contiguous()
         ms = cuda_ms(lambda: tk.dense_tri_nearest(rows, o16, d16), 5)
         plain_ms = cuda_ms(lambda: tk.dense_tri_nearest_reference(rows, o16, d16), 1, graph=False)
-        b_ms, b_by = bound(16_384 * rows.shape[0] * FLOPS["sweep"],
+        b_ms, b_by = bound(rows.shape[0] * (16_384 * FLOPS[2] + FLOPS["tri_setup"]),
                            4 * rows.numel() + 16_384 * (24 + 8))
         log(f"K8 {name} B=16384: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms by {b_by} ({100 * b_ms / ms:.1f}% of the kernel's "
@@ -1157,7 +1394,7 @@ def phase_sweep_path(device, record):
     short = headline_queue(device, 8 * h["B"])
     rec["device_busy_share"] = busy_share(lambda: integrator.render_queue(
         prep, scene, st, cam, short, h["width"], h["height"], 3, h["B"]),
-        {"dense_tri_nearest": "dense_tri_kernel", "fused_nearest": "fused_nearest_kernel"})
+        {"dense_tri_nearest": "dense_tri_kernel", "fused_nearest": "fused_nearest_kernel"})[0]
     log(f"dense-sweep path: device busy {100 * rec['device_busy_share']:.1f}% of wall "
         f"time under the profiler (S={short.numel()}; the trace holds every launch of "
         f"K8 and K1)")

@@ -115,15 +115,28 @@ __device__ __forceinline__ float t_tri(const float* p, const Ray& r) {
   return (inside && t > 0.f) ? t : INFINITY;
 }
 
-__device__ __forceinline__ float t_aarect(const float* p, const Ray& r) {
-  const float idx = 1.f / nz(r.dx), idy = 1.f / nz(r.dy), idz = 1.f / nz(r.dz);
-  const float ax1 = (p[0] - r.ox) * idx, ay1 = (p[1] - r.oy) * idy;
-  const float az1 = (p[2] - r.oz) * idz, ax2 = (p[3] - r.ox) * idx;
-  const float ay2 = (p[4] - r.oy) * idy, az2 = (p[5] - r.oz) * idz;
+// the ray's direction reciprocals, 1 / nz(d), as the slab tests take them
+struct Recip {
+  float x, y, z;
+};
+
+__device__ __forceinline__ Recip recip(const Ray& r) {
+  return {1.f / nz(r.dx), 1.f / nz(r.dy), 1.f / nz(r.dz)};
+}
+
+__device__ __forceinline__ float t_aarect(const float* p, const Ray& r,
+                                          const Recip& inv) {
+  const float ax1 = (p[0] - r.ox) * inv.x, ay1 = (p[1] - r.oy) * inv.y;
+  const float az1 = (p[2] - r.oz) * inv.z, ax2 = (p[3] - r.ox) * inv.x;
+  const float ay2 = (p[4] - r.oy) * inv.y, az2 = (p[5] - r.oz) * inv.z;
   const float tmin = fmaxf(fmaxf(fminf(ax1, ax2), fminf(ay1, ay2)), fminf(az1, az2));
   const float tmax = fminf(fminf(fmaxf(ax1, ax2), fmaxf(ay1, ay2)), fmaxf(az1, az2));
   const float t = tmin > 0.f ? tmin : tmax;
   return (tmin < tmax && t > 0.f) ? t : INFINITY;
+}
+
+__device__ __forceinline__ float t_aarect(const float* p, const Ray& r) {
+  return t_aarect(p, r, recip(r));
 }
 
 __device__ __forceinline__ float t_square(const float* p, const Ray& r) {
@@ -139,6 +152,22 @@ __device__ __forceinline__ float t_square(const float* p, const Ray& r) {
 // Newton polish (4 steps) in the torus' local frame.
 // ---------------------------------------------------------------------------
 
+// sqrtf, or with APPROX one MUFU.SQRT (sqrt.approx: a relative error
+// below 2^-22; x >= 1e-24 here, so ftz flushes nothing) in place of the
+// correctly rounded square root's refinement and range branch.  With
+// APPROX the derivative's two divisions are __fdividef too: it only
+// steers the Newton steps, whose fixed point |f| <= 1e-6 sdf decides.
+template <bool APPROX>
+__device__ __forceinline__ float torus_sqrt(float x) {
+  if constexpr (APPROX) {
+    float y;
+    asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+  } else {
+    return sqrtf(x);
+  }
+}
+
 struct Torus {
   float lox, loy, loz;   // ray origin in the torus frame
   float dx, dy, dz;
@@ -146,43 +175,55 @@ struct Torus {
   float t_in, t_out;
   bool hit_box;
 
+  template <bool APPROX = false>
   __device__ __forceinline__ float sdf(float t) const {
     const float px = lox + dx * t, py = loy + dy * t, pz = loz + dz * t;
-    const float qx = sqrtf(fmaxf(px * px + pz * pz, 1e-24f)) - big_r;
-    return sqrtf(fmaxf(qx * qx + py * py, 1e-24f)) - small_r;
+    const float qx = torus_sqrt<APPROX>(fmaxf(px * px + pz * pz, 1e-24f)) - big_r;
+    return torus_sqrt<APPROX>(fmaxf(qx * qx + py * py, 1e-24f)) - small_r;
   }
 
+  template <bool APPROX = false>
   __device__ __forceinline__ float dsdf(float t) const {
     const float px = lox + dx * t, py = loy + dy * t, pz = loz + dz * t;
-    const float rho = sqrtf(fmaxf(px * px + pz * pz, 1e-24f));
+    const float rho = torus_sqrt<APPROX>(fmaxf(px * px + pz * pz, 1e-24f));
     const float qx = rho - big_r;
-    const float ql = sqrtf(fmaxf(qx * qx + py * py, 1e-24f));
-    const float drho = (px * dx + pz * dz) / rho;
-    return (qx * drho + py * dy) / ql;
+    const float ql = torus_sqrt<APPROX>(fmaxf(qx * qx + py * py, 1e-24f));
+    if constexpr (APPROX) {
+      const float drho = __fdividef(px * dx + pz * dz, rho);
+      return __fdividef(qx * drho + py * dy, ql);
+    } else {
+      const float drho = (px * dx + pz * dz) / rho;
+      return (qx * drho + py * dy) / ql;
+    }
   }
 
   // the march's lower bound; every hit distance is >= it
   __device__ __forceinline__ float t_lo() const { return fmaxf(t_in, 1e-4f); }
 };
 
-__device__ __forceinline__ Torus torus_setup(const float* p, const Ray& r) {
+__device__ __forceinline__ Torus torus_setup(const float* p, const Ray& r,
+                                             const Recip& inv) {
   Torus s;
   s.lox = r.ox - p[0]; s.loy = r.oy - p[1]; s.loz = r.oz - p[2];
   s.dx = r.dx; s.dy = r.dy; s.dz = r.dz;
   s.big_r = p[3]; s.small_r = p[4];
   const float extx = p[3] + p[4], exty = p[4];
-  const float idx = 1.f / nz(r.dx), idy = 1.f / nz(r.dy), idz = 1.f / nz(r.dz);
-  const float ax1 = (-extx - s.lox) * idx, ax2 = (extx - s.lox) * idx;
-  const float ay1 = (-exty - s.loy) * idy, ay2 = (exty - s.loy) * idy;
-  const float az1 = (-extx - s.loz) * idz, az2 = (extx - s.loz) * idz;
+  const float ax1 = (-extx - s.lox) * inv.x, ax2 = (extx - s.lox) * inv.x;
+  const float ay1 = (-exty - s.loy) * inv.y, ay2 = (exty - s.loy) * inv.y;
+  const float az1 = (-extx - s.loz) * inv.z, az2 = (extx - s.loz) * inv.z;
   s.t_in = fmaxf(fmaxf(fminf(ax1, ax2), fminf(ay1, ay2)), fminf(az1, az2));
   s.t_out = fminf(fminf(fmaxf(ax1, ax2), fmaxf(ay1, ay2)), fmaxf(az1, az2));
   s.hit_box = s.t_in < s.t_out && s.t_out > 0.f;
   return s;
 }
 
+__device__ __forceinline__ Torus torus_setup(const float* p, const Ray& r) {
+  return torus_setup(p, r, recip(r));
+}
+
 // Distance to the torus along the ray, +inf on a miss.  Call only when
-// s.hit_box holds (a box miss is a miss).
+// s.hit_box holds (a box miss is a miss).  APPROX takes the square roots
+// by torus_sqrt's approximation (the scene kernels K1 and K2).
 //
 // Two per-thread early exits, both exact:
 //  - march: once a step is not taken, t stays put; if the re-evaluated
@@ -191,18 +232,19 @@ __device__ __forceinline__ Torus torus_setup(const float* p, const Ray& r) {
 //    and step <= tol for dist < 0), so t is final;
 //  - Newton: once |f| <= 1e-6, t stays put and f is recomputed from the
 //    same t, so every later iteration is the same no-op.
+template <bool APPROX = false>
 __device__ __forceinline__ float torus_march(const Torus& s) {
   const float t_lo = s.t_lo();
   float t = t_lo;
-  const float f0 = s.sdf(t);
+  const float f0 = s.template sdf<APPROX>(t);
   const float sign0 = f0 > 0.f ? 1.f : (f0 < 0.f ? -1.f : (f0 == 0.f ? 1.f : f0));
-  float dist = sign0 * s.sdf(t);
+  float dist = sign0 * s.template sdf<APPROX>(t);
   float relaxed = 1.f;
   for (int i = 0; i < TORUS_STEPS; ++i) {
     const float step = dist * (relaxed > 0.f ? TORUS_OMEGA : 1.f);
     const bool can = (dist > TORUS_TOL) && (t < s.t_out);
     const float t2 = t + (can ? step : 0.f);
-    const float d2 = sign0 * s.sdf(t2);
+    const float d2 = sign0 * s.template sdf<APPROX>(t2);
     if (!can && d2 == dist) break;
     const bool accept = (step <= TORUS_TOL) || (d2 + dist >= step);
     if (accept) {
@@ -212,16 +254,16 @@ __device__ __forceinline__ float torus_march(const Torus& s) {
     relaxed = accept ? 1.f : 0.f;
   }
   for (int i = 0; i < TORUS_NEWTON; ++i) {
-    const float f = sign0 * s.sdf(t);
+    const float f = sign0 * s.template sdf<APPROX>(t);
     if (!(fabsf(f) > 1e-6f)) break;
-    float fp = sign0 * s.dsdf(t);
+    float fp = sign0 * s.template dsdf<APPROX>(t);
     if (fabsf(fp) < 1e-6f) fp = fp < 0.f ? -1e-6f : 1e-6f;
     float tn = t - f / fp;
     tn = tn < t_lo ? t_lo : tn;   // clip as jnp.clip: NaN passes through
     tn = tn > s.t_out ? s.t_out : tn;
     t = tn;
   }
-  const bool ok = fabsf(s.sdf(t)) <= TORUS_HIT_TOL && t > 0.f &&
+  const bool ok = fabsf(s.template sdf<APPROX>(t)) <= TORUS_HIT_TOL && t > 0.f &&
                   t <= s.t_out + TORUS_TOL;
   return ok ? t : INFINITY;
 }

@@ -7,36 +7,27 @@
 // minimum of (t, slot) is kept: the TPU kernel's argmin within a chunk
 // (lowest slot) and strict < across chunks.
 //
-// What bounds it on the card: float32 instruction throughput, not memory.  The
-// function as the TPU kernel writes it is 78 operations per (ray,
-// triangle) pair against 36 bytes per triangle and 24 per ray that every
-// pair shares: at 70k triangles x 16k rays, 90 GFLOP over 3 MB, 1.34 ms at
-// the card's 67 TFLOP/s.  That rate counts a fused multiply-add as two
-// operations; what the card executes is 132 SMs x 128 lanes x ~1.98 GHz =
-// ~33.5 T float32 instructions/s, so the floor of a kernel is its
+// What bounds it on the card: float32 instruction throughput, not memory.
+// The function needs 42 operations per (ray, triangle) pair and 88 per
+// triangle to set it up (chip_smoke.py's FLOPS, the same for every kernel
+// that tests triangles), against 36 bytes per triangle and 24 per ray that
+// every pair shares: at 70k triangles x 16k rays, 48 GFLOP over 3 MB, 0.72
+// ms at the card's 67 TFLOP/s.  That rate counts a fused multiply-add as
+// two operations; what the card executes is 132 SMs x 128 lanes x ~1.98 GHz
+// = ~33.5 T float32 instructions/s, so the floor of a kernel is its
 // instructions per pair over that rate, and the gain is in needing fewer
 // of them per pair.
 //
 // What the design does about it:
-//  - everything that does not depend on the ray is computed once per
-//    triangle, by the thread that stages it into shared memory: the plane
-//    (n, n.v0) and, by the scalar triple product
-//    (e x (p - a)) . n = (p - a) . (n x e), one vector m_i = (n x e_i) / |n|
-//    and one offset k_i = slack - a_i . m_i per edge.  The staged triangle
-//    is four float4 (n | n.v0, m_i | k_i), each the operands of one chain
-//    of fused multiply-adds, and a half-space test is
-//    fma(pz, m.z, fma(py, m.y, fma(px, m.x, k))) >= 0: three instructions
-//    where the TPU kernel's cross and dot product take seventeen.  The
-//    pair loop comes to ~30 instructions;
+//  - the triangle test of triangle_stage.cuh: everything that does not
+//    depend on the ray is staged once per triangle into shared memory, and
+//    the pair loop comes to ~30 instructions;
 //  - SWEEP_RAYS (4) rays per thread, in registers: one broadcast 16-byte
 //    shared load feeds that many pairs, and their dependent chains
 //    (reciprocal -> hit point -> three tests) interleave;
-//  - t = (n.v0 - n.o) * rcp(n.d) with the approximate reciprocal
-//    (rcp.approx.ftz: one MUFU.RCP, at most 1 ulp off; |n.d| >= 1e-30, so
-//    ftz flushes nothing) and a multiply, in place of the IEEE division's
-//    ~9 instructions.  t moves by at most 2 ulp: max |dt| against the
-//    plain version on the card stayed at 4.3e-6 on mesh70k's and
-//    cloud300k's camera rays, as with the IEEE division (chip_smoke.py,
+//  - the approximate reciprocal for t (triangle_stage.cuh): max |dt|
+//    against the plain version on the card stayed at 4.3e-6 on mesh70k's
+//    and cloud300k's camera rays, as with the IEEE division (chip_smoke.py,
 //    phase k8, prints it).  __fdividef is the same reciprocal behind a
 //    range check and two conditional rescalings that this denominator
 //    never needs (three instructions a pair), and __frcp_rn is the
@@ -52,13 +43,9 @@
 //    initialised to all ones (one cudaMemsetAsync), which no hit's key
 //    reaches, and a last pass unpacks it.
 //
-// What differs from the TPU kernel's arithmetic: n.d is still clamped to
-// 1e-30 where it vanishes, the normal stays unnormalised in the plane test,
-// rsqrt(max(n.n, 1e-30)) still scales only the edge terms, and a hit still
-// needs inside && t > 0; but the inside test is evaluated in the staged
-// form above, so a hit point within rounding of an edge may fall on the
-// other side than in the plain version (on a mesh the neighbour across the
-// edge then takes the hit at the same t).
+// What differs from the TPU kernel's arithmetic: the staged inside test
+// (triangle_stage.cuh); on a mesh, where it moves a hit point across an
+// edge, the neighbour across the edge takes the hit at the same t.
 //
 // Not used, and why: tensor cores (wgmma) - the products are of depth 3,
 // and TF32's 10-bit mantissa would move hits; TMA or cp.async double
@@ -80,9 +67,7 @@
 // As compiled for sm_90a by nvcc 12.8 at -O3 (cuobjdump -sass of the built
 // library; the count holds for that compiler and this source) the pair
 // loop has 971 instructions for 8 triangles x 4 rays, 30.3 a pair: a
-// floor of 1.04 ms at 16,384 x 70,314 and the boost clock, below the
-// 1.34 ms that the 78 operations of the TPU kernel's form take at the
-// card's peak.
+// floor of 1.04 ms at 16,384 x 70,314 and the boost clock.
 //
 // No padding of rays or triangles: ragged ends are masked here.
 // Plain C interface for ctypes; the entry returns cudaGetLastError().
@@ -90,7 +75,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "scene_families.cuh"
+#include "triangle_stage.cuh"
 
 namespace wpt {
 
@@ -102,52 +87,6 @@ constexpr int SWEEP_SMS = 132;
 constexpr int SWEEP_BLOCKS_PER_SM = 48;    // blocks the grid aims at, per SM
 constexpr int SWEEP_BLOCK_RAYS = SWEEP_BLOCK * SWEEP_RAYS;
 constexpr unsigned long long SWEEP_EMPTY = ~0ull;   // above every hit's key
-
-// One staged triangle, read as broadcast float4.
-struct TriStage {
-  float4 n;    // n.xyz, n.v0
-  float4 m0;   // m_0.xyz, k_0
-  float4 m1;   // m_1.xyz, k_1
-  float4 m2;   // m_2.xyz, k_2
-};
-
-// m = (n x e) * inv_len, and k = slack - a . m in m.w
-__device__ __forceinline__ float4 stage_edge(float nx, float ny, float nzz,
-                                             float inv_len, float ex, float ey,
-                                             float ez, float ax, float ay,
-                                             float az) {
-  const float mx = (ny * ez - nzz * ey) * inv_len;
-  const float my = (nzz * ex - nx * ez) * inv_len;
-  const float mz = (nx * ey - ny * ex) * inv_len;
-  return make_float4(mx, my, mz, EPS_SLACK - (ax * mx + ay * my + az * mz));
-}
-
-__device__ __forceinline__ TriStage stage_triangle(const float* __restrict__ p) {
-  const float v0x = p[0], v0y = p[1], v0z = p[2];
-  const float v1x = p[3], v1y = p[4], v1z = p[5];
-  const float v2x = p[6], v2y = p[7], v2z = p[8];
-  const float e1x = v1x - v0x, e1y = v1y - v0y, e1z = v1z - v0z;
-  const float e2x = v2x - v0x, e2y = v2y - v0y, e2z = v2z - v0z;
-  const float nx = e1y * e2z - e1z * e2y;
-  const float ny = e1z * e2x - e1x * e2z;
-  const float nzz = e1x * e2y - e1y * e2x;
-  const float inv_len = rsqrtf(fmaxf(nx * nx + ny * ny + nzz * nzz, 1e-30f));
-  TriStage s;
-  s.n = make_float4(nx, ny, nzz, nx * v0x + ny * v0y + nzz * v0z);
-  s.m0 = stage_edge(nx, ny, nzz, inv_len, e1x, e1y, e1z, v0x, v0y, v0z);
-  s.m1 = stage_edge(nx, ny, nzz, inv_len, v2x - v1x, v2y - v1y, v2z - v1z,
-                    v1x, v1y, v1z);
-  s.m2 = stage_edge(nx, ny, nzz, inv_len, v0x - v2x, v0y - v2y, v0z - v2z,
-                    v2x, v2y, v2z);
-  return s;
-}
-
-// a / b by the approximate reciprocal; |b| >= 1e-30, so ftz flushes nothing
-__device__ __forceinline__ float sweep_div(float a, float b) {
-  float inv;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(inv) : "f"(b));
-  return a * inv;
-}
 
 __global__ void __launch_bounds__(SWEEP_BLOCK)
 dense_tri_kernel(const float* __restrict__ tris, int n_tris, int tiles_per_slice,
@@ -184,17 +123,10 @@ dense_tri_kernel(const float* __restrict__ tris, int n_tris, int tiles_per_slice
       const int slot = base + j;
 #pragma unroll
       for (int q = 0; q < SWEEP_RAYS; ++q) {
-        const Ray& a = r[q];
-        const float ndd = nz(fmaf(a.dz, N.z, fmaf(a.dy, N.y, a.dx * N.x)));
-        const float num = fmaf(-a.oz, N.z, fmaf(-a.oy, N.y, fmaf(-a.ox, N.x, N.w)));
-        const float t = sweep_div(num, ndd);
-        const float px = fmaf(a.dx, t, a.ox), py = fmaf(a.dy, t, a.oy),
-                    pz = fmaf(a.dz, t, a.oz);
-        const float s0 = fmaf(pz, M0.z, fmaf(py, M0.y, fmaf(px, M0.x, M0.w)));
-        const float s1 = fmaf(pz, M1.z, fmaf(py, M1.y, fmaf(px, M1.x, M1.w)));
-        const float s2 = fmaf(pz, M2.z, fmaf(py, M2.y, fmaf(px, M2.x, M2.w)));
+        bool inside;
+        const float t = staged_hit(N, M0, M1, M2, r[q], inside);
         // ascending slots and a strict <: the first minimum
-        if (s0 >= 0.f && s1 >= 0.f && s2 >= 0.f && t > 0.f && t < bt[q]) {
+        if (inside && t > 0.f && t < bt[q]) {
           bt[q] = t;
           bs[q] = slot;
         }

@@ -25,10 +25,13 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # tables, 6 family counts, o, d, R, t_out, fam_out, slot_out, stream
-    "wpt_fused_nearest": [_P] + [_I] * 6 + [_P, _P, _I, _P, _P, _P, _P],
-    # tables, 6 family counts, o, d, dist, excl, R, occ_out, stream
-    "wpt_fused_occluded": [_P] + [_I] * 6 + [_P, _P, _P, _P, _I, _P, _P],
+    # tables, 6 family counts, o, d, sid_of_slot, R, t_out, sid_out, stream
+    "wpt_fused_nearest": [_P] + [_I] * 6 + [_P, _P, _P, _I, _P, _P, _P],
+    # tables, 6 family counts, o, d, dist, light_sid, code_of, R, occ_out,
+    # stream
+    "wpt_fused_occluded": [_P] + [_I] * 6 + [_P, _P, _P, _P, _P, _I, _P, _P],
+    # int[8] out
+    "wpt_scene_launch_shape": [_P],
     # aabbs, C, o, d, skip_e, skip_c, R, ent_out, cid_out, stream
     "wpt_select": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
     # ... as wpt_select, then dense tables, 6 family counts, dense sids,
@@ -46,8 +49,8 @@ _SIGNATURES = {
 }
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _sources(csrc=CSRC):
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -61,22 +64,24 @@ def _nvcc() -> str:
                        "the scene kernels")
 
 
-def source_hash() -> str:
+def source_hash(csrc=CSRC) -> str:
     h = hashlib.sha256()
-    for p in _sources():
+    for p in _sources(csrc):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def build() -> pathlib.Path:
-    """Compile the sources if no library for their hash exists yet;
-    return the library's path.  Each ``.cu`` compiles in its own ``nvcc``
-    process, all started together, then one link.  The compiler's report
-    (registers, shared memory, spills per kernel) is kept beside the
-    library as ``ptxas.txt``."""
-    out_dir = BUILD_ROOT / source_hash()
+def build(csrc=CSRC) -> pathlib.Path:
+    """Compile the sources in ``csrc`` (the package's own by default) if
+    no library for their hash exists yet; return the library's path.
+    Each ``.cu`` compiles in its own ``nvcc`` process, all started
+    together, then one link.  The compiler's report (registers, shared
+    memory, spills per kernel) is kept beside the library as
+    ``ptxas.txt``."""
+    csrc = pathlib.Path(csrc)
+    out_dir = BUILD_ROOT / source_hash(csrc)
     lib = out_dir / "libwpt_kernels.so"
     if lib.exists():
         return lib
@@ -85,9 +90,9 @@ def build() -> pathlib.Path:
     work = pathlib.Path(tempfile.mkdtemp(dir=out_dir))
     try:
         procs = []
-        for cu in sorted(CSRC.glob("*.cu")):
+        for cu in sorted(csrc.glob("*.cu")):
             obj = work / (cu.stem + ".o")
-            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-I", str(CSRC),
+            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-I", str(csrc),
                    "-o", str(obj), str(cu)]
             procs.append((cu.name, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))

@@ -120,10 +120,8 @@ def select_blocks_lanes_reference(cs: cl.ClusterSet, o, d, skip_e, skip_c, lanes
 
 def select_scan_reference(cs: cl.ClusterSet, prep, o, d, skip_e, skip_c):
     """Plain PyTorch version of :func:`select_scan`."""
-    t, fam, slot = sk.fused_nearest_reference(prep.tables, o, d)
-    sid = prep.sid_of_slot[prep.fam_offset[torch.clamp(fam, min=0).long()] + slot]
-    return select_blocks_reference(cs, o, d, skip_e, skip_c) + \
-        (t, torch.where(fam >= 0, sid, -1).to(torch.int32))
+    t, sid = sk.fused_nearest_reference(prep.tables, o, d, prep.sid_of_slot)
+    return select_blocks_reference(cs, o, d, skip_e, skip_c) + (t, sid.to(torch.int32))
 
 
 def probe_blocks_reference(cs: cl.ClusterSet, o, d, cidx):
