@@ -60,6 +60,13 @@ its last line):
    and a shape id may differ only where the two slots' distances tie
    within that tolerance.  Device times of K3-K6 and their plain
    versions at 16,384 rays at both table sizes (C = 550 and C = 2,344).
+   Then K4 on the inputs of the middle call of one run of phase 10's
+   path (``flat_inputs`` records them by wrapping the wrapper), under
+   the same rule except that t may differ by the cancellation of a
+   grazing or far bounce ray (``cancellation_atol``), timed.  Prints the
+   probe's launch shape and the device memory of both cluster tables
+   (the 11-row table and the staged triangles the probes read) at
+   C = 550 and C = 2,344.
 10. The mesh path at full width: mesh70k (70,314 triangles and a plane),
    512x512, NEE, 8 bounces, S = 524,288 paths through
    ``render_queue_flat`` with 16,384 lanes.  Every sample counted once,
@@ -1048,18 +1055,30 @@ def check_select(cs, o, d, out_k, out_p, what):
     return worst, ties
 
 
-def check_probe(cs, o, d, cidx, out_k, out_p, what):
-    """Hold one probe round's (t, sid) against its plain version's.
-    Returns (max |dt|, ids that differ on a rounding tie, hit rate)."""
+def check_probe(cs, o, d, cidx, out_k, out_p, what, atol=1e-5):
+    """Hold one probe round's (t, sid) against its plain version's: hits
+    agree on > 99.9% of rays, t within rtol 1e-5 and ``atol`` (a number,
+    or one per ray), a shape id may differ only where the two slots'
+    distances tie within that tolerance.  Returns (max |dt|, ids that
+    differ on a rounding tie, hit rate)."""
     import torch
     from wasm_pathtracer_tpu_torch.ops import cluster as cl
     (t_k, s_k), (t_p, s_p) = out_k, out_p
+    atol = torch.as_tensor(atol, device=o.device).expand(o.shape[0])
+
+    def close(a, b, rows):
+        return bool(((a - b).abs() <= atol[rows] + 1e-5 * b.abs()).all())
+
     fin_k, fin_p = torch.isfinite(t_k), torch.isfinite(t_p)
     both = fin_k & fin_p
     agree = (fin_k == fin_p).float().mean().item()
-    if not (agree > 0.999 and torch.allclose(t_k[both], t_p[both], rtol=1e-5, atol=1e-5)
+    if not (agree > 0.999 and close(t_k[both], t_p[both], both)
             and bool((s_k[~fin_k] == -1).all())):
-        raise AssertionError(f"{what}: distances disagree (hit agreement {agree:.6f})")
+        bad = both & ((t_k - t_p).abs() > atol + 1e-5 * t_p.abs())
+        raise AssertionError(
+            f"{what}: distances disagree (hit agreement {agree:.6f}; {int(bad.sum())} rays "
+            f"beyond the tolerance, max |dt| {(t_k - t_p)[bad].abs().max().item() if bad.any() else 0:.3g}, "
+            f"their origins up to {o[bad].abs().max().item() if bad.any() else 0:.6g} out)")
     worst = (t_k[both] - t_p[both]).abs().max().item() if both.any() else 0.0
     idx = torch.nonzero(both & (s_k != s_p))[:, 0]
     if idx.numel():
@@ -1069,10 +1088,33 @@ def check_probe(cs, o, d, cidx, out_k, out_p, what):
         jk = (grid == s_k[idx, None]).int().argmax(1)
         jp = (grid == s_p[idx, None]).int().argmax(1)
         rows = torch.arange(idx.numel(), device=o.device)
-        if not torch.isclose(t_slots[rows, jk], t_slots[rows, jp], rtol=1e-5,
-                             atol=1e-5).all():
+        if not close(t_slots[rows, jk], t_slots[rows, jp], idx):
             raise AssertionError(f"{what}: shape ids differ off a tie")
     return worst, idx.numel(), fin_p.float().mean().item()
+
+
+def cancellation_atol(cs, o, d, cidx, sid, ulps=32):
+    """(R,) t tolerance of one probe round: 1e-5, or where the plain
+    version's hit (shape id ``sid`` in cluster ``cidx``) is a triangle and
+    it is larger, ``ulps`` units in the last place of the largest
+    coordinate of the origin and the triangle over |cos| of the angle
+    between the ray and the triangle's normal.  t = (n.v0 - n.o) / (n.d)
+    cancels terms of that size in the kernel's staged form and the plain
+    version alike, and the grazing ray divides what is left by the
+    cosine: bounce rays leave surfaces up to ~10^5 units out (grazing
+    ground hits), and some skim the mesh next to their origin."""
+    import torch
+    C, G = cs.num_clusters, cs.group
+    c = cidx.long().clamp(0, C - 1)
+    j = (cs.slot_to_sid.view(C, G)[c] == sid.long()[:, None]).int().argmax(1)
+    v = cs.blocks[c, j].view(-1, 3, 3)
+    tri = (cs.btype[c, j] == 2) & (sid >= 0)
+    n = torch.linalg.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
+    cos = (n * d).sum(-1).abs() / n.norm(dim=-1).clamp(min=1e-30)
+    big = torch.maximum(o.abs().amax(dim=1), v.abs().amax(dim=(1, 2)))
+    ulp = torch.nextafter(big, torch.full_like(big, float("inf"))) - big
+    atol = torch.clamp(ulps * ulp / cos.clamp(min=1e-30), min=1e-5)
+    return torch.where(tri, atol, torch.full_like(atol, 1e-5))
 
 
 def check_probe_blocks(cs, o, d, cidx, what):
@@ -1099,8 +1141,97 @@ def check_probe_blocks(cs, o, d, cidx, what):
     return (t_k[both] - t_p[both]).abs().max().item() if both.any() else 0.0
 
 
+# the K4 call of a mesh70k flat run (of 168) whose inputs phase clusters
+# checks and times: the middle one
+FLAT_CALL = 84
+
+
+@functools.cache
+def flat_inputs(device):
+    """(cluster set, o, d, c1, c2) of call ``FLAT_CALL`` of K4 in one run of
+    phase 10's path (mesh70k through ``render_queue_flat``), recorded by
+    wrapping ``probe_pair`` in this script for that run."""
+    import torch
+    from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+    from wasm_pathtracer_tpu_torch.ops import probe_kernels as pk
+    from wasm_pathtracer_tpu_torch.ops import wavefront
+    h = MESH
+    scene, prep = mesh70k(device)
+    st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=h["max_bounces"])
+    saved, got, calls = pk.probe_pair, [], [0]
+
+    def wrapped(*args):
+        if calls[0] == FLAT_CALL:
+            got.extend(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+        calls[0] += 1
+        return saved(*args)
+
+    # the wrapper counts its launches on whatever its module name holds
+    wrapped.launches = saved.launches
+    try:
+        pk.probe_pair = wrapped
+        wavefront.render_queue_flat(prep, scene, st, mesh_camera(device),
+                                    headline_queue(device, h["S"]), h["width"],
+                                    h["height"], 4, h["B"])
+        torch.cuda.synchronize()
+    finally:
+        pk.probe_pair = saved
+    if not got:
+        raise AssertionError(f"the flat run made fewer than {FLAT_CALL + 1} K4 calls")
+    return tuple(got)
+
+
+def probe_bounds(cs, o, c1, c2=None):
+    """(bound_ms, bound_by) of K4 (two rounds, ``c2`` given), K5 and K7 on
+    these inputs."""
+    B, table = o.shape[0], 4 * cs.table.numel()
+    probe = probe_flops(cs, c1)
+    bounds = {"probe_min": bound(probe, B * 24 + B * 4 + table + B * 8),
+              "probe_blocks": bound(probe, B * 24 + B * 4 + table + B * cs.group * 4)}
+    if c2 is not None:
+        bounds["probe_pair"] = bound(probe + probe_flops(cs, c2),
+                                     B * 24 + B * 8 + table + B * 16)
+    return bounds
+
+
+def check_flat_inputs(device, record):
+    """K4 against its plain version on the inputs of one call of the
+    mesh70k flat path, under phase 9's rule with t's tolerance from
+    ``cancellation_atol``, and its times there.  Returns max |dt|."""
+    import torch
+    from wasm_pathtracer_tpu_torch.ops import probe_kernels as pk
+    cs, o, d, c1, c2 = flat_inputs(device)
+    out_k = pk.probe_pair(cs, o, d, c1, c2)
+    out_p = pk.probe_pair_reference(cs, o, d, c1, c2)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for rnd, c, k, p in ((1, c1, out_k[:2], out_p[:2]), (2, c2, out_k[2:], out_p[2:])):
+        atol = cancellation_atol(cs, o, d, c, p[1])
+        err, ties, rate = check_probe(cs, o, d, c, k, p,
+                                      f"K4 flat path call {FLAT_CALL} round {rnd}", atol)
+        worst = max(worst, err)
+        both = torch.isfinite(p[0]) & torch.isfinite(k[0])
+        beyond = both & ((k[0] - p[0]).abs() > 1e-5 + 1e-5 * p[0].abs())
+        log(f"K4 flat path call {FLAT_CALL} round {rnd}: max |dt| {err:.3g}, {ties} ties, "
+            f"hit rate {rate:.3f}; {int(beyond.sum())} of {int(both.sum())} hits beyond "
+            f"rtol/atol 1e-5, within their cancellation tolerance (up to "
+            f"{atol[beyond].max().item() if beyond.any() else 0:.3g}; origins up to "
+            f"{o[beyond].abs().max().item() if beyond.any() else 0:.6g} out)")
+    ms = cuda_ms(lambda: pk.probe_pair(cs, o, d, c1, c2), 20)
+    plain_ms = cuda_ms(lambda: pk.probe_pair_reference(cs, o, d, c1, c2), 3, graph=False)
+    b_ms, b_by = probe_bounds(cs, o, c1, c2)["probe_pair"]
+    log(f"K4 flat path call {FLAT_CALL} B={o.shape[0]}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} ({100 * b_ms / ms:.1f}% of "
+        f"the kernel's time); SM clock now / max {sm_clocks()}")
+    rec = record.setdefault("probe_pair", {})
+    rec.setdefault("other_shapes", {})["flat_path_inputs"] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    return worst
+
+
 def phase_cluster_kernels(device, record):
-    """K3-K7 against their plain versions on three cluster sets."""
+    """K3-K7 against their plain versions on three cluster sets, and K4
+    on the flat path's own inputs."""
     import torch
     from wasm_pathtracer_tpu_torch.models import scenes
     from wasm_pathtracer_tpu_torch.models.camera import initial_camera
@@ -1163,6 +1294,9 @@ def phase_cluster_kernels(device, record):
         log(msg + f"; K5 max |dt| {err:.3g}, {ties} ties; K7 max |dt| {err7:.3g}")
         if name == "museum_clustered":
             continue
+        log(f"{name}: device memory of the cluster tables: 11-row table "
+            f"{4 * cs.table.numel() / 1e6:.3f} MB, staged triangles "
+            f"{4 * cs.staged.numel() / 1e6:.3f} MB (C={cs.num_clusters}, G={cs.group})")
 
         # device times at B = 16,384 at both table sizes
         o16, d16 = o[:16_384], d[:16_384]
@@ -1183,26 +1317,25 @@ def phase_cluster_kernels(device, record):
                  for k, (kern, plain) in calls.items()}
         log(f"{name} B=16384 device ms (kernel, plain): " + ", ".join(
             f"{k} {ms:.4f} / {pms:.4f}" for k, (ms, pms) in times.items()))
-        C, G, B = cs.num_clusters, cs.group, 16_384
+        C, B = cs.num_clusters, 16_384
         slab = B * (C * FLOPS["box"] + FLOPS["recip"])
-        rays, boxes, table = B * 24, 4 * 6 * C, 4 * cs.table.numel()
-        probe = probe_flops(cs, a)
+        rays, boxes = B * 24, 4 * 6 * C
         bounds = {
             "select_blocks": bound(slab, rays + B * 8 + boxes + B * 20),
             "select_scan": bound(slab + scene_flops(prep.tables, o16, d16),
                                  rays + B * 8 + boxes + 4 * prep.tables.flat.numel()
                                  + B * 28),
-            "probe_pair": bound(probe + probe_flops(cs, b), rays + B * 8 + table + B * 16),
-            "probe_min": bound(probe, rays + B * 4 + table + B * 8),
-            "probe_blocks": bound(probe, rays + B * 4 + table + B * G * 4)}
+            **probe_bounds(cs, o16, a, b)}
         for k, (ms, pms) in times.items():
             at = dict(ms=ms, plain_ms=pms, bound_ms=bounds[k][0], bound_by=bounds[k][1])
             if name == "mesh70k":
                 record.setdefault(k, {}).update(at)
             else:   # the larger table: C = 2,344
-                record.setdefault(k, {})["other_shapes"] = {name: at}
+                record.setdefault(k, {}).setdefault("other_shapes", {})[name] = at
         log(f"{name} bounds: " + ", ".join(f"{k} {v[0]:.5f} ms by {v[1]}"
                                            for k, v in bounds.items()))
+    log(f"probe kernels built as {pk.launch_shape(16_384, 2)} (B=16384, two rounds)")
+    errs["probe_pair"] = max(errs["probe_pair"], check_flat_inputs(device, record))
     for k, err in errs.items():
         record.setdefault(k, {})["max_abs_err"] = err
 

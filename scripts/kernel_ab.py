@@ -2,8 +2,9 @@
 """Time the port's kernels as an older commit had them against the kernels
 of this tree, on one NVIDIA GPU, inside one process.
 
-    python3 scripts/kernel_ab.py --parent DIR [--variant NAME:CONST=VALUE,...]
-                                 [--only scene|k8|select|paths ...] [--sass]
+    python3 scripts/kernel_ab.py --parent DIR [--extra NAME=DIR ...]
+                                 [--variant NAME:CONST=VALUE,...]
+                                 [--only scene|k8|select|probe|paths ...] [--sass]
                                  [--out FILE]
     python3 scripts/kernel_ab.py --kernels-per-iteration
 
@@ -15,7 +16,8 @@ points themselves, launch one or the other, so that the commits are
 compared under one clock, one timer and one card state.  ``--variant``
 adds a copy of this tree's ``csrc`` with the named ``constexpr`` constants
 of its sources set to other values (``lanes4:K1_LANES=4,K2_LANES=4``): a
-step of a design timed beside the others.
+step of a design timed beside the others; ``--extra NAME=DIR`` adds any
+other ``csrc`` directory (a patched copy) under that name.
 
 - ``scene``: ``fused_nearest`` (K1) and ``fused_occluded`` (K2) on two ray
   sets of 16,384: the museum rays of ``chip_smoke.py``'s phases ``k1`` and
@@ -33,16 +35,27 @@ step of a design timed beside the others.
 - ``select``: ``select_blocks`` and ``select_scan`` at C = 550 (mesh70k)
   and C = 2,344 (cloud300k): entries equal to the plain version bit for
   bit, ids equal where finite, device ms in two rounds.
+- ``probe``: ``probe_pair`` (K4), ``probe_min`` (K5) and ``probe_blocks``
+  (K7) at C = 550 (mesh70k) and C = 2,344 (cloud300k) on the rays and
+  clusters of ``chip_smoke.py``'s phase ``clusters`` (16,384 rays, the
+  clusters the select gives them), on the clustered museum (C = 1,
+  every family but planes), and K4 on the inputs of one call of the
+  mesh70k flat path (``chip_smoke.flat_inputs``).  Agreement with the
+  plain version (hits, max |dt|, shape ids, K7's entries) and K7's
+  minimum over G against K5's t, device ms in two rounds, the second in
+  reverse order, and each library's registers.  A library from before the
+  staged table (no ``wpt_probe_launch_shape``) is called with that
+  commit's arguments.
 - ``paths``: mesh70k at full width (512x512, NEE, 8 bounces, S = 524,288,
   B = 16,384) through the dense-sweep loop and the flat wavefront, in the
   order parent, current, current, parent: paths/s by the host clock.
-  Needs a parent with this tree's scene-kernel arguments.
+  Needs a parent with this tree's scene- and probe-kernel arguments.
 
 ``--sass`` disassembles every library (``cuobjdump -sass``) and prints, for
-K1, K2 and K8, each kernel's instruction count and its loops (a backward
-branch and the instructions it spans) with their sizes and most common
-opcodes, and a hash of K8's instruction stream, which is equal between two
-libraries exactly when K8's machine code is.
+K1, K2, K8 and the probe kernels, each kernel's instruction count and its
+loops (a backward branch and the instructions it spans) with their sizes
+and most common opcodes, and a hash of K8's instruction stream, which is
+equal between two libraries exactly when K8's machine code is.
 
 ``--kernels-per-iteration`` profiles a short run of the museum headline
 (S = 131,072) with the package and ``chip_smoke.py`` that come first on
@@ -51,8 +64,8 @@ the device kernels per loop iteration.
 
 Device ms are ``chip_smoke.cuda_ms``: CUDA events around each of five
 replays of a CUDA graph that holds the call 50 (K1, K2), 5 (K8) or 20
-(selects) times, the median replay per call (a K8 call is its memset,
-sweep and unpack kernels).  Results go to standard output and, as JSON, to
+(selects, probes) times, the median replay per call (a K8 call is its
+memset, sweep and unpack kernels).  Results go to standard output and, as JSON, to
 ``--out`` (``build/kernel_ab.json``).  Needs a GPU and nvcc.
 """
 
@@ -85,8 +98,21 @@ OLD_SCENE_SIGNATURES = {
 }
 
 
+# the probe kernels' entry points before the staged table
+OLD_PROBE_SIGNATURES = {
+    # table, C, G, o, d, cidx, n_rounds, R, t_out, sid_out, stream
+    "wpt_probe": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],
+    # table, C, G, o, d, cidx, R, dist_out, stream
+    "wpt_probe_blocks": [_P, _I, _I, _P, _P, _P, _I, _P, _P],
+}
+
+
 def is_old_scene(lib) -> bool:
     return not hasattr(lib, "wpt_scene_launch_shape")
+
+
+def is_old_probe(lib) -> bool:
+    return not hasattr(lib, "wpt_probe_launch_shape")
 
 
 def variant_csrc(spec: str) -> pathlib.Path:
@@ -111,16 +137,20 @@ def variant_csrc(spec: str) -> pathlib.Path:
     return out
 
 
-def build_all(parent, variants=()):
+def build_all(parent, variants=(), extras=()):
     """{"parent": library of the sources in ``parent``, "current": the
-    package's own, NAME: each variant's}, built in parallel.  Each is
-    loaded with the entry points it has (an older ``csrc`` may lack some)
-    and this tree's argument types, except a scene-kernel library from
-    before shape ids, which gets that commit's."""
+    package's own, NAME: each variant's and each extra's}, built in
+    parallel.  Each is loaded with the entry points it has (an older
+    ``csrc`` may lack some) and this tree's argument types, except a
+    scene-kernel or probe library from before shape ids or the staged
+    table, which gets that commit's."""
     from wasm_pathtracer_tpu_torch.ops import _build
     dirs = {"parent": pathlib.Path(parent).resolve(), "current": _build.CSRC}
     for spec in variants:
         dirs[spec.partition(":")[0]] = variant_csrc(spec)
+    for spec in extras:
+        name, _, path = spec.partition("=")
+        dirs[name] = pathlib.Path(path).resolve()
     with concurrent.futures.ThreadPoolExecutor(len(dirs)) as pool:
         paths = dict(zip(dirs, pool.map(_build.build, dirs.values())))
     libs = {}
@@ -130,6 +160,8 @@ def build_all(parent, variants=()):
         sigs = dict(_build._SIGNATURES)
         if is_old_scene(lib):
             sigs.update(OLD_SCENE_SIGNATURES)
+        if is_old_probe(lib):
+            sigs.update(OLD_PROBE_SIGNATURES)
         for entry, argtypes in sigs.items():
             fn = getattr(lib, entry, None)
             if fn is not None:
@@ -245,10 +277,118 @@ def ab_select(device, libs):
     return out
 
 
+def probe_calls(lib, cl, o, d, c1, c2):
+    """({kernel name: call}, outputs): K4 (clusters c1, c2), K5 and K7
+    (cluster c1) of ``lib`` launched on these inputs with the arguments
+    of the commit it was built from; outputs (t (2, R), sid (2, R), t
+    (1, R), sid (1, R), dist (R, G)) hold what the last calls wrote."""
+    import torch
+    from wasm_pathtracer_tpu_torch.ops import probe_kernels as pk
+    dev, R, G = o.device, o.shape[0], cl.group
+    cidx2 = torch.stack([c1, c2]).contiguous()
+    out = (torch.empty((2, R), device=dev), torch.empty((2, R), dtype=torch.int32, device=dev),
+           torch.empty((1, R), device=dev), torch.empty((1, R), dtype=torch.int32, device=dev),
+           torch.empty((R, G), device=dev))
+    head = ((cl.table.data_ptr(), cl.num_clusters, G) if is_old_probe(lib)
+            else pk._check_probe(cl, o, d, c1, ())[2])
+
+    def run(entry, *args):
+        rc = entry(*head, o.data_ptr(), d.data_ptr(), *args,
+                   torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{entry.__name__}: CUDA error {rc}")
+
+    # the calls hold the output tensors, so that their memory outlives them
+    t2, s2, t1, s1, dist = out
+    return ({"probe_pair": lambda: run(lib.wpt_probe, cidx2.data_ptr(), 2, R, t2.data_ptr(),
+                                       s2.data_ptr()),
+             "probe_min": lambda: run(lib.wpt_probe, c1.data_ptr(), 1, R, t1.data_ptr(),
+                                      s1.data_ptr()),
+             "probe_blocks": lambda: run(lib.wpt_probe_blocks, c1.data_ptr(), R,
+                                         dist.data_ptr())},
+            out)
+
+
+def probe_sets(device):
+    """{name: (cluster set, o, d, c1, c2)}: phase clusters' rays (16,384)
+    and clusters on mesh70k, cloud300k and the clustered museum, and the
+    inputs of one call of the mesh70k flat path."""
+    import torch
+    from wasm_pathtracer_tpu_torch.models import scenes
+    from wasm_pathtracer_tpu_torch.models.camera import initial_camera
+    from wasm_pathtracer_tpu_torch.ops import bvh, trace
+    from wasm_pathtracer_tpu_torch.ops import probe_kernels as pk
+    big = scenes.cloud(300_000, device=device)
+    sets = {"mesh70k": (cs.mesh70k(device)[1].cluster, cs.mesh_camera(device)),
+            "cloud300k": (bvh.attach_clusters(trace.prepare(big), big).cluster,
+                          initial_camera(5, device)),
+            "museum_clustered": (cs.museum_clustered(device)[1].cluster,
+                                 initial_camera(0, device))}
+    out = {}
+    for i, (name, (cl, cam)) in enumerate(sets.items()):
+        o, d = cs.test_rays(16_384, 400 + i, device, cam)
+        fresh = (torch.full((16_384,), -torch.inf, device=device),
+                 torch.full((16_384,), -1, dtype=torch.int32, device=device))
+        sel = pk.select_blocks_reference(cl, o, d, *fresh)
+        out[name] = (cl, o, d, sel[1].contiguous(), sel[3].contiguous())
+    out["flat_path_inputs"] = cs.flat_inputs(device)
+    return out
+
+
+def ab_probe(device, libs):
+    import torch
+    from wasm_pathtracer_tpu_torch.ops import probe_kernels as pk
+    out = {}
+    for set_name, (cl, o, d, c1, c2) in probe_sets(device).items():
+        p4 = pk.probe_pair_reference(cl, o, d, c1, c2)
+        p7 = pk.probe_blocks_reference(cl, o, d, c1)
+        res, calls = {}, {}
+        for name, lib in libs.items():
+            calls[name], (t2, s2, t1, s1, dist) = probe_calls(lib, cl, o, d, c1, c2)
+            for call in calls[name].values():
+                call()
+            torch.cuda.synchronize()
+            rounds = []
+            for k in range(2):
+                t_p, s_p = p4[2 * k], p4[2 * k + 1]
+                hit_k, hit_p = torch.isfinite(t2[k]), torch.isfinite(t_p)
+                both = hit_k & hit_p
+                rounds.append(dict(
+                    hit_agreement=(hit_k == hit_p).float().mean().item(),
+                    max_abs_dt=(t2[k][both] - t_p[both]).abs().max().item() if both.any() else 0.0,
+                    t_within_1e5=bool(torch.allclose(t2[k][both], t_p[both], rtol=1e-5,
+                                                     atol=1e-5)),
+                    sid_agreement=(s2[k] == s_p)[both].float().mean().item() if both.any() else 1.0,
+                    hit_rate=hit_p.float().mean().item()))
+            fin_k, fin_p = torch.isfinite(dist), torch.isfinite(p7)
+            both = fin_k & fin_p
+            res[name] = dict(
+                k4_rounds=rounds, k5_equals_k4_round1=bool(torch.equal(t1[0], t2[0])),
+                k7_finite_agreement=(fin_k == fin_p).float().mean().item(),
+                k7_max_abs_dt=(dist[both] - p7[both]).abs().max().item() if both.any() else 0.0,
+                k7_min_equals_k5=bool(torch.equal(dist.amin(dim=1), t1[0])))
+            if not is_old_probe(lib):
+                with use_library(lib):
+                    res[name]["launch"] = pk.launch_shape(o.shape[0], 2)
+        kernels = ("probe_pair",) if set_name == "flat_path_inputs" else \
+            ("probe_pair", "probe_min", "probe_blocks")
+        for kernel in kernels:
+            ms = {name: [] for name in libs}
+            for order in (list(libs), list(libs)[::-1]):
+                for name in order:
+                    ms[name].append(cs.cuda_ms(calls[name][kernel], 20))
+            for name in libs:
+                res[name][f"{kernel}_ms"] = ms[name]
+        for name in libs:
+            cs.log(f"probe {set_name} C={cl.num_clusters} {name}: {json.dumps(res[name])}")
+        out[set_name] = res
+    return out
+
+
 def ab_paths(device, libs):
-    if is_old_scene(libs["parent"]):
-        raise ValueError("paths: the parent's scene kernels take other arguments "
-                         "than this tree's wrappers pass")
+    if is_old_scene(libs["parent"]) or is_old_probe(libs["parent"]):
+        raise ValueError("paths: the parent's scene or probe kernels take other "
+                         "arguments than this tree's wrappers pass")
     from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
     from wasm_pathtracer_tpu_torch.models import scenes
     from wasm_pathtracer_tpu_torch.ops import integrator, trace, wavefront
@@ -388,17 +528,19 @@ def ab_scene(device, libs):
     return out
 
 
-PARTS = {"scene": ab_scene, "k8": ab_k8, "select": ab_select, "paths": ab_paths}
+PARTS = {"scene": ab_scene, "k8": ab_k8, "select": ab_select, "probe": ab_probe,
+         "paths": ab_paths}
 
 
 def sass_report(libs):
-    """Instruction counts and loops of K1, K2 and K8 in each library's
-    machine code, and a hash of K8's instruction stream."""
+    """Instruction counts and loops of K1, K2, K8 and the probe kernels in
+    each library's machine code, and a hash of K8's instruction stream."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     func = re.compile(r"^\s*Function : (\S+)")
     instr = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
     target = re.compile(r"\bBRA\S*\s+(?:`\()?(0x[0-9a-f]+)")
-    wanted = ("fused_nearest_kernel", "fused_occluded_kernel", "dense_tri_kernel")
+    wanted = ("fused_nearest_kernel", "fused_occluded_kernel", "dense_tri_kernel",
+              "probe_kernel")
     out = {}
     for name, lib in libs.items():
         text = subprocess.run([cuobjdump, "-sass", str(lib.path)], capture_output=True,
@@ -482,8 +624,11 @@ def main() -> int:
     ap.add_argument("--parent", help="csrc directory of the commit to compare with")
     ap.add_argument("--variant", nargs="*", default=[],
                     help="NAME:CONST=VALUE,... copies of this tree's csrc to time too")
+    ap.add_argument("--extra", nargs="*", default=[],
+                    help="NAME=DIR: other csrc directories to time too")
     ap.add_argument("--only", nargs="+", choices=list(PARTS), default=list(PARTS))
-    ap.add_argument("--sass", action="store_true", help="report K1, K2 and K8's machine code")
+    ap.add_argument("--sass", action="store_true",
+                    help="report K1, K2, K8 and the probes' machine code")
     ap.add_argument("--kernels-per-iteration", action="store_true",
                     help="only count the headline loop's device kernels per iteration")
     ap.add_argument("--out", default=str(ROOT / "build" / "kernel_ab.json"))
@@ -500,7 +645,7 @@ def main() -> int:
     else:
         if not args.parent:
             ap.error("--parent is needed")
-        libs = build_all(args.parent, args.variant)
+        libs = build_all(args.parent, args.variant, args.extra)
         if args.sass:
             record["sass"] = sass_report(libs)
         for part in args.only:

@@ -52,26 +52,61 @@
 // functions are the scene kernels' (scene_families.cuh), as the TPU kernel
 // reuses the megakernel's _t_planes ... _t_squares.
 //
-// Probe (K4/K5), one warp per ray and round.  Lane j tests slots j, j+32,
-// ... of the ray's cluster, then a warp-shuffle reduction keeps the
-// lexicographic (t, slot) minimum: the first-minimum slot of the TPU
-// kernel's _reduce_min_row.  What bounds it: loads of the cluster table,
-// 11 x G floats per (ray, round), 5.6 KB at G = 128, read as coalesced
-// 128-byte rows; a 550-cluster table (3.1 MB) or a 2,344-cluster one
-// (13 MB) stays in the 50 MB L2.  The per-family tests are the scene
-// kernels' (scene_families.cuh): they compute the same expressions as
-// probe_pallas._tri_test ... _torus_test (the triangle test with the
-// normal's inverse length, without an n.d != 0 mask).  A lane skips a
-// torus whose box entry is beyond its best hit so far (exact: a torus hit
-// is >= that entry).
-//
-// Unreduced probe (K7): the same kernel body compiled with STORE_ALL, so
-// the per-family tests are shared.  Each lane stores the distance of
-// every slot it tests into a (R, G) matrix (+inf on a miss or a padding
-// slot) instead of reducing; a warp's 32 stores are one 128-byte row
-// segment.  There is no running best, so no torus is skipped: every slot
-// reads the distance the TPU kernel gives it.  What bounds it: the same
-// table loads plus the G x 4 bytes written per ray.
+// Probe (K4/K5/K7): the distance from a ray to each of the G slots of one
+// cluster, and for K4/K5 their lexicographic (t, slot) minimum: the
+// first-minimum slot of the TPU kernel's _reduce_min_row.  K4 is two
+// rounds (clusters c1 and c2 of every ray), K5 one.  What bounds it: the
+// loads of the slots, not the operations.  The function needs 42
+// operations a (ray, triangle) pair (chip_smoke.py's FLOPS), 0.0013 ms a
+// round at 16,384 rays x 128 slots, and its inputs stay in the 50 MB L2
+// (the 11-row table is 3.1 MB at C = 550 and 13.2 MB at C = 2,344, the
+// staged table beside it 4.5 and 19.2 MB), but each (ray, round) reads its
+// own cluster's 8 KB of staged rows: a K5 call moves 134 MB from L2 and L1
+// into the SMs, and K4 twice that.  A launch alone takes ~0.0024 ms.
+// What the design does:
+//  - triangles staged once per scene: ClusterSet.staged holds each
+//    triangle slot in K8's form (triangle_stage.cuh: the plane and per
+//    edge m_i, k_i), built with the cluster set, so a pair is staged_t's
+//    FMA chain and one rcp.approx, then staged_inside's three, where
+//    rebuilding the triangle from its vertices (t_tri: edges, normal, IEEE
+//    1 / sqrt and division) took ~80 instructions.  Unlike K1, K2 and K8 a
+//    probe cannot stage per block, since every lane group probes its own
+//    ray's cluster, but the staging does not depend on the ray;
+//  - the table is laid out (C, 4, G) float4 with row q of every slot
+//    together, so a lane group's load of row q is one contiguous run; K4
+//    and K5 read the three edge rows only where the plane hit lies in
+//    (0, best) (staged_slot), which is exact;
+//  - a set of triangles only (MIXED false: mesh70k, the clouds) reads no
+//    type code: a slot that is not a triangle is padding, whose staged
+//    rows are zero and never hit (t = 0 fails t > 0).  A mixed set reads
+//    the type and tests spheres, tori, aarects and squares with the scene
+//    kernels' IEEE family tests (scene_families.cuh) on the 11-row table,
+//    loading only the parameters the family reads.  A lane skips a torus
+//    whose box entry is beyond its best hit so far (exact: a torus hit is
+//    >= that entry);
+//  - every (ray, round) has its own group of PROBE_LANES (16) lanes, two
+//    rays a warp: K4's two rounds, independent of each other, run side by
+//    side instead of one after the other in one warp.  Group g is round
+//    g / R of ray g % R, so it reads cidx[g] and writes t_out[g],
+//    sid_out[g].  Lane j takes slots j, j + L, ... in ascending order with
+//    a strict < (the first minimum), PROBE_UNROLL of them in flight, and
+//    the group reduces in log2 L xor-shuffle rounds on (t, slot);
+//  - K7 is the same body compiled with STORE_ALL, BLOCKS_LANES (32) lanes
+//    a ray: each lane stores every slot's distance into the (R, G) matrix
+//    (+inf on a miss or padding; a group's stores are contiguous in the
+//    row) and there is no running best, so no torus is skipped and every
+//    slot's four rows are read.  K5's skips are exact, so K7's minimum
+//    over G equals K5's t bit for bit.
+// Timed and dropped (scripts/kernel_ab.py --only probe; PERF.md): the
+// rounds one after the other in one group (as fast: the kernel is bound by
+// its loads, not by one group's chain); for K4/K5 8 and 32 lanes (+25% and
+// +14% for K4 on mesh70k; 8 lanes are 3% faster on the clustered museum),
+// all four rows read for every slot (+6% for K4), an unroll of 1 or 2
+// (+13%, +6%); for K7 16 lanes (+19%) and the edge rows read only where
+// t > 0 (+7%).
+// The triangle arithmetic is that of K1, K2 and K8 (triangle_stage.cuh),
+// not the TPU kernel's probe_pallas._tri_test: the staged inside test may
+// put a hit point within rounding of an edge on the other side.
 //
 // Output contract: (t, sid) per round, t = +inf and sid = -1 on a miss.
 // The TPU kernels also returned the winner's table row so that shading
@@ -82,7 +117,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "scene_families.cuh"
+#include "triangle_stage.cuh"
 
 namespace wpt {
 
@@ -90,8 +125,12 @@ constexpr int SELECT_LANES = 8;     // lanes per ray (a power of two <= 32)
 constexpr int SELECT_TILE = 1024;   // boxes per shared-memory tile
 constexpr int SELECT_BLOCK = 256;   // threads per select block
 constexpr int SELECT_RAYS = SELECT_BLOCK / SELECT_LANES;   // rays per block
-constexpr int PROBE_BLOCK = 128;    // threads per probe block: 4 rays
+constexpr int PROBE_LANES = 16;     // K4/K5: lanes per (ray, round) (a power of two <= 32)
+constexpr int BLOCKS_LANES = 32;    // K7: lanes per ray
+constexpr int PROBE_BLOCK = 128;    // threads per probe block
+constexpr int PROBE_UNROLL = 4;     // slots a lane has in flight (triangles only)
 constexpr int TABLE_ROWS = 11;      // params 0-8, type code, shape id
+constexpr int STAGE_ROWS = 4;       // float4 rows of a staged triangle
 constexpr unsigned PROBE_MASK = 0xffffffffu;
 
 __device__ __forceinline__ float nz30(float x) {
@@ -226,56 +265,96 @@ select_kernel(const float* __restrict__ aabbs, int C,
   }
 }
 
-// Distance from one ray to one cluster slot, by its type code.
-__device__ __forceinline__ float slot_distance(int type, const float* p,
-                                               const Ray& r, float best) {
+// Distance from one ray to triangle slot s of a cluster's staged rows st
+// (STAGE_ROWS x G float4), +inf unless 0 < t < limit and the hit point is
+// inside; zero rows (padding) never hit (t = 0).  With CULL the three edge
+// rows are read only where the plane hit can count: exact, since a slot
+// with t >= limit never wins (strict <) and one with t <= 0 is a miss.
+template <bool CULL>
+__device__ __forceinline__ float staged_slot(const float4* __restrict__ st, int G,
+                                             int s, const Ray& r, float limit) {
+  const float t = staged_t(st[s], r);
+  if (CULL && !(t > 0.f && t < limit)) return INFINITY;
+  const bool inside = staged_inside(st[G + s], st[2 * G + s], st[3 * G + s], r, t);
+  return inside && t > 0.f && t < limit ? t : INFINITY;
+}
+
+// the first W parameters of slot s of a cluster's 11-row table
+template <int W>
+__device__ __forceinline__ void load_params(const float* __restrict__ tab, int G,
+                                            int s, float* p) {
+#pragma unroll
+  for (int q = 0; q < W; ++q) p[q] = tab[q * G + s];
+}
+
+// Distance from one ray to a slot that is not a triangle, by its type
+// code; a torus whose box entry is beyond best is skipped.
+__device__ __forceinline__ float family_distance(int type, const float* __restrict__ tab,
+                                                 int G, int s, const Ray& r,
+                                                 float best) {
+  float p[6];
   switch (type) {
-    case FAM_SPHERE: return t_sphere(p, r);
-    case FAM_TRI: return t_tri(p, r);
+    case FAM_SPHERE: load_params<4>(tab, G, s, p); return t_sphere(p, r);
     case FAM_TORUS: {
-      const Torus s = torus_setup(p, r);
-      if (!s.hit_box || s.t_lo() > best) return INFINITY;
-      return torus_march(s);
+      load_params<5>(tab, G, s, p);
+      const Torus ts = torus_setup(p, r);
+      if (!ts.hit_box || ts.t_lo() > best) return INFINITY;
+      return torus_march(ts);
     }
-    case FAM_AARECT: return t_aarect(p, r);
-    case FAM_SQUARE: return t_square(p, r);
+    case FAM_AARECT: load_params<6>(tab, G, s, p); return t_aarect(p, r);
+    case FAM_SQUARE: load_params<4>(tab, G, s, p); return t_square(p, r);
     default: return INFINITY;   // padding (-1); planes are never clustered
   }
 }
 
-template <bool STORE_ALL>
+template <bool STORE_ALL, bool MIXED>
 __global__ void __launch_bounds__(PROBE_BLOCK)
-probe_kernel(const float* __restrict__ table, int C, int G,
-             const float* __restrict__ o, const float* __restrict__ d,
-             const int* __restrict__ cidx, int n_rounds, int n_rays,
+probe_kernel(const float* __restrict__ table, const float4* __restrict__ staged,
+             int C, int G, const float* __restrict__ o, const float* __restrict__ d,
+             const int* __restrict__ cidx, int n_groups, int n_rays,
              float* __restrict__ t_out, int* __restrict__ sid_out) {
-  const int ray = (blockIdx.x * PROBE_BLOCK + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (ray >= n_rays) return;   // uniform across the warp
+  constexpr int L = STORE_ALL ? BLOCKS_LANES : PROBE_LANES;
+  const int lane = threadIdx.x % L;
+  const int group = (blockIdx.x * PROBE_BLOCK + threadIdx.x) / L;
+  // a group past the end repeats group 0 and stores nothing: every lane
+  // of the warp takes part in the shuffles
+  const bool active = group < n_groups;
+  const int g = active ? group : 0;
+  const int ray = g % n_rays;
   const Ray r = load_ray(o, d, ray);
-  for (int k = 0; k < n_rounds; ++k) {
-    int c = cidx[k * n_rays + ray];
-    c = c < 0 ? 0 : (c >= C ? C - 1 : c);
-    const float* tab = table + static_cast<size_t>(c) * TABLE_ROWS * G;
-    float bt = INFINITY;
-    int bs = G;
-    for (int s = lane; s < G; s += 32) {
-      const int type = static_cast<int>(tab[9 * G + s]);
-      float p[9];
-#pragma unroll
-      for (int q = 0; q < 9; ++q) p[q] = tab[q * G + s];
-      const float t = slot_distance(type, p, r, STORE_ALL ? INFINITY : bt);
-      if (STORE_ALL) {   // K7: t_out is the (R, G) distance matrix
-        t_out[static_cast<size_t>(ray) * G + s] = t;
-        continue;
-      }
-      if (t < bt) {   // ascending slots: strict < keeps the first minimum
-        bt = t;
-        bs = s;
-      }
+  int c = cidx[g];
+  c = c < 0 ? 0 : (c >= C ? C - 1 : c);
+  const float* tab = table + static_cast<size_t>(c) * TABLE_ROWS * G;
+  const float4* st = staged + static_cast<size_t>(c) * STAGE_ROWS * G;
+  float bt = INFINITY;
+  int bs = G;
+  // one slot's distance: K7 stores it into the (R, G) matrix t_out;
+  // K4/K5 keep the first minimum (ascending slots, strict <)
+  auto fold = [&](int s, float t) {
+    if constexpr (STORE_ALL) {
+      if (active) t_out[static_cast<size_t>(ray) * G + s] = t;
+    } else if (t < bt) {
+      bt = t;
+      bs = s;
     }
+  };
+  // K7 keeps every distance; K4/K5 need none at or beyond the best so far
+  if constexpr (MIXED) {
+#pragma unroll 1
+    for (int s = lane; s < G; s += L) {
+      const int type = static_cast<int>(tab[9 * G + s]);
+      const float limit = STORE_ALL ? INFINITY : bt;
+      fold(s, type == FAM_TRI ? staged_slot<!STORE_ALL>(st, G, s, r, limit)
+                              : family_distance(type, tab, G, s, r, limit));
+    }
+  } else {   // every slot that is not a triangle is padding
+#pragma unroll PROBE_UNROLL
+    for (int s = lane; s < G; s += L)
+      fold(s, staged_slot<!STORE_ALL>(st, G, s, r, STORE_ALL ? INFINITY : bt));
+  }
+  if constexpr (!STORE_ALL) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
+    for (int off = L / 2; off > 0; off >>= 1) {
       const float ot = __shfl_xor_sync(PROBE_MASK, bt, off);
       const int os = __shfl_xor_sync(PROBE_MASK, bs, off);
       if (ot < bt || (ot == bt && os < bs)) {
@@ -283,12 +362,35 @@ probe_kernel(const float* __restrict__ table, int C, int G,
         bs = os;
       }
     }
-    if (!STORE_ALL && lane == 0) {
-      t_out[k * n_rays + ray] = bt;
-      sid_out[k * n_rays + ray] =
-          bt < INFINITY ? static_cast<int>(tab[10 * G + bs]) : -1;
+    if (active && lane == 0) {
+      t_out[g] = bt;
+      sid_out[g] = bt < INFINITY ? static_cast<int>(tab[10 * G + bs]) : -1;
     }
   }
+}
+
+static int probe_blocks_for(int n_groups, int lanes) {
+  const long long threads = static_cast<long long>(lanes) * n_groups;
+  return static_cast<int>((threads + PROBE_BLOCK - 1) / PROBE_BLOCK);
+}
+
+template <bool STORE_ALL>
+int launch_probe(const float* table, const void* staged, int C, int G, int mixed,
+                 const float* o, const float* d, const int* cidx, int n_rounds,
+                 int n_rays, float* t_out, int* sid_out, void* stream) {
+  cudaGetLastError();   // clear a stale error so the return value is ours
+  if (n_rays <= 0 || n_rounds <= 0) return 0;
+  const int n_groups = n_rounds * n_rays;
+  const float4* st = static_cast<const float4*>(staged);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = probe_blocks_for(n_groups, STORE_ALL ? BLOCKS_LANES : PROBE_LANES);
+  if (mixed)
+    probe_kernel<STORE_ALL, true><<<blocks, PROBE_BLOCK, 0, s>>>(
+        table, st, C, G, o, d, cidx, n_groups, n_rays, t_out, sid_out);
+  else
+    probe_kernel<STORE_ALL, false><<<blocks, PROBE_BLOCK, 0, s>>>(
+        table, st, C, G, o, d, cidx, n_groups, n_rays, t_out, sid_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool DENSE>
@@ -345,34 +447,55 @@ int wpt_select_scan(const float* aabbs, int C, const float* o, const float* d,
 }
 
 // K4 (n_rounds = 2) and K5 (n_rounds = 1).  table (C, 11, G) f32;
-// cidx (n_rounds, R) i32; t_out (n_rounds, R) f32; sid_out (n_rounds, R)
-// i32.
-int wpt_probe(const float* table, int C, int G, const float* o, const float* d,
-              const int* cidx, int n_rounds, int n_rays, float* t_out,
-              int* sid_out, void* stream) {
-  using namespace wpt;
-  cudaGetLastError();
-  if (n_rays <= 0 || n_rounds <= 0) return 0;
-  const long long threads = 32LL * n_rays;
-  const int blocks = static_cast<int>((threads + PROBE_BLOCK - 1) / PROBE_BLOCK);
-  probe_kernel<false><<<blocks, PROBE_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      table, C, G, o, d, cidx, n_rounds, n_rays, t_out, sid_out);
-  return static_cast<int>(cudaGetLastError());
+// staged (C, 4, G, 4) f32, 16-byte aligned; mixed: 0 when every clustered
+// shape is a triangle; cidx (n_rounds, R) i32; t_out (n_rounds, R) f32;
+// sid_out (n_rounds, R) i32.
+int wpt_probe(const float* table, const void* staged, int C, int G, int mixed,
+              const float* o, const float* d, const int* cidx, int n_rounds,
+              int n_rays, float* t_out, int* sid_out, void* stream) {
+  return wpt::launch_probe<false>(table, staged, C, G, mixed, o, d, cidx, n_rounds,
+                                  n_rays, t_out, sid_out, stream);
 }
 
-// K7.  table (C, 11, G) f32; cidx (R,) i32; dist_out (R, G) f32: the
-// distance of every slot of the ray's cluster, +inf on a miss or padding.
-int wpt_probe_blocks(const float* table, int C, int G, const float* o,
-                     const float* d, const int* cidx, int n_rays,
+// K7.  table, staged and mixed as for K4; cidx (R,) i32; dist_out (R, G)
+// f32: the distance of every slot of the ray's cluster, +inf on a miss or
+// padding.
+int wpt_probe_blocks(const float* table, const void* staged, int C, int G, int mixed,
+                     const float* o, const float* d, const int* cidx, int n_rays,
                      float* dist_out, void* stream) {
+  return wpt::launch_probe<true>(table, staged, C, G, mixed, o, d, cidx, 1, n_rays,
+                                 dist_out, nullptr, stream);
+}
+
+// The probe's launch shape for R rays and n_rounds rounds, and what the
+// compiler gave its four kernels: out[0..4] = K4/K5's grid x, threads per
+// block, K4/K5's lanes per (ray, round), K7's grid x for R rays, K7's lanes
+// per ray; then for K4/K5 on triangles, K4/K5 on a mixed set, K7 on
+// triangles and K7 on a mixed set, three each: registers per thread,
+// static shared bytes, local (spill) bytes.
+int wpt_probe_launch_shape(int n_rays, int n_rounds, int* out) {
   using namespace wpt;
   cudaGetLastError();
-  if (n_rays <= 0) return 0;
-  const long long threads = 32LL * n_rays;
-  const int blocks = static_cast<int>((threads + PROBE_BLOCK - 1) / PROBE_BLOCK);
-  probe_kernel<true><<<blocks, PROBE_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      table, C, G, o, d, cidx, 1, n_rays, dist_out, nullptr);
-  return static_cast<int>(cudaGetLastError());
+  const void* kernels[4] = {
+      reinterpret_cast<const void*>(probe_kernel<false, false>),
+      reinterpret_cast<const void*>(probe_kernel<false, true>),
+      reinterpret_cast<const void*>(probe_kernel<true, false>),
+      reinterpret_cast<const void*>(probe_kernel<true, true>)};
+  const bool any = n_rays > 0 && n_rounds > 0;
+  out[0] = any ? probe_blocks_for(n_rounds * n_rays, PROBE_LANES) : 0;
+  out[1] = PROBE_BLOCK;
+  out[2] = PROBE_LANES;
+  out[3] = any ? probe_blocks_for(n_rays, BLOCKS_LANES) : 0;
+  out[4] = BLOCKS_LANES;
+  for (int i = 0; i < 4; ++i) {
+    cudaFuncAttributes attr;
+    const cudaError_t rc = cudaFuncGetAttributes(&attr, kernels[i]);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    out[5 + 3 * i] = attr.numRegs;
+    out[6 + 3 * i] = static_cast<int>(attr.sharedSizeBytes);
+    out[7 + 3 * i] = static_cast<int>(attr.localSizeBytes);
+  }
+  return 0;
 }
 
 }  // extern "C"

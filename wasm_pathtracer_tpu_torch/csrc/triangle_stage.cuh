@@ -1,6 +1,7 @@
 // One ray-triangle test for every kernel that stages its triangles: the
-// dense sweep (K8, traverse_kernels.cu) and the whole-scene kernels (K1,
-// K2, scene_kernels.cu).
+// dense sweep (K8, traverse_kernels.cu), the whole-scene kernels (K1, K2,
+// scene_kernels.cu) and the cluster probes (K4, K5, K7, probe_kernels.cu,
+// which read a table staged once per scene: ClusterSet.staged).
 //
 // Everything that does not depend on the ray is computed once per
 // triangle, by the thread that stages it into shared memory: the plane
@@ -77,20 +78,32 @@ __device__ __forceinline__ float rcp_div(float a, float b) {
   return a * inv;
 }
 
-// The pair test: t of the plane hit, and whether the hit point lies inside
-// the three edges (t > 0 is left to the caller).
-__device__ __forceinline__ float staged_hit(const float4& N, const float4& M0,
-                                            const float4& M1, const float4& M2,
-                                            const Ray& a, bool& inside) {
+// t of the plane hit (the first half of staged_hit)
+__device__ __forceinline__ float staged_t(const float4& N, const Ray& a) {
   const float ndd = nz(fmaf(a.dz, N.z, fmaf(a.dy, N.y, a.dx * N.x)));
   const float num = fmaf(-a.oz, N.z, fmaf(-a.oy, N.y, fmaf(-a.ox, N.x, N.w)));
-  const float t = rcp_div(num, ndd);
+  return rcp_div(num, ndd);
+}
+
+// whether the plane hit at t lies inside the three edges (the second half)
+__device__ __forceinline__ bool staged_inside(const float4& M0, const float4& M1,
+                                              const float4& M2, const Ray& a,
+                                              float t) {
   const float px = fmaf(a.dx, t, a.ox), py = fmaf(a.dy, t, a.oy),
               pz = fmaf(a.dz, t, a.oz);
   const float s0 = fmaf(pz, M0.z, fmaf(py, M0.y, fmaf(px, M0.x, M0.w)));
   const float s1 = fmaf(pz, M1.z, fmaf(py, M1.y, fmaf(px, M1.x, M1.w)));
   const float s2 = fmaf(pz, M2.z, fmaf(py, M2.y, fmaf(px, M2.x, M2.w)));
-  inside = s0 >= 0.f && s1 >= 0.f && s2 >= 0.f;
+  return s0 >= 0.f && s1 >= 0.f && s2 >= 0.f;
+}
+
+// The pair test: t of the plane hit, and whether the hit point lies inside
+// the three edges (t > 0 is left to the caller).
+__device__ __forceinline__ float staged_hit(const float4& N, const float4& M0,
+                                            const float4& M1, const float4& M2,
+                                            const Ray& a, bool& inside) {
+  const float t = staged_t(N, a);
+  inside = staged_inside(M0, M1, M2, a, t);
   return t;
 }
 

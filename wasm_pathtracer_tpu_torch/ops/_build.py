@@ -38,10 +38,13 @@ _SIGNATURES = {
     # t_out, sid_out, stream
     "wpt_select_scan": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P] + [_I] * 6
                        + [_P, _P, _P, _P],
-    # table, C, G, o, d, cidx, n_rounds, R, t_out, sid_out, stream
-    "wpt_probe": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],
-    # table, C, G, o, d, cidx, R, dist_out, stream
-    "wpt_probe_blocks": [_P, _I, _I, _P, _P, _P, _I, _P, _P],
+    # table, staged, C, G, mixed, o, d, cidx, n_rounds, R, t_out, sid_out,
+    # stream
+    "wpt_probe": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],
+    # table, staged, C, G, mixed, o, d, cidx, R, dist_out, stream
+    "wpt_probe_blocks": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P],
+    # R, n_rounds, int[17] out
+    "wpt_probe_launch_shape": [_I, _I, _P],
     # tris, T, o, d, R, packed scratch, t_out, slot_out, stream
     "wpt_dense_tri_nearest": [_P, _I, _P, _P, _I, _P, _P, _P, _P],
     # T, R, int[8] out

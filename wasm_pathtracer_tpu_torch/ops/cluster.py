@@ -25,6 +25,7 @@ import torch
 
 from wasm_pathtracer_tpu_torch.models.scene import PrimType
 from wasm_pathtracer_tpu_torch.ops import intersect as isx
+from wasm_pathtracer_tpu_torch.ops import traverse_kernels as tk
 from wasm_pathtracer_tpu_torch.utils import vecmath as vm
 
 CLUSTER_SIZE = 128   # primitives per cluster (G)
@@ -34,12 +35,17 @@ TABLE_ROWS = 11
 
 @dataclasses.dataclass(frozen=True)
 class ClusterSet:
-    """The cluster tables, and the two packed layouts the kernels read.
+    """The cluster tables, and the three packed layouts the kernels read.
 
     ``table`` (C, 11, G) f32 holds, per cluster, the parameter rows
     transposed (row k = parameter k of the G slots), then the PrimType
     code (-1 on padding) and the shape id (-1 on padding) as f32 (exact
-    below 2^24).  ``aabbs`` (6, C) f32 holds lo.xyz then hi.xyz, one row
+    below 2^24).  ``staged`` (C, 4, G, 4) f32 holds the triangle slots in
+    the dense sweep's staged form (``traverse_kernels.staged_rows``: the
+    plane ``n | n.v0``, then ``m_i | k_i`` per edge), row q of every slot
+    together, so that a lane group reads row q of its slots as one
+    contiguous run of float4; it is zero, and so never hit, on every
+    other slot.  ``aabbs`` (6, C) f32 holds lo.xyz then hi.xyz, one row
     per coordinate.
     """
 
@@ -50,6 +56,7 @@ class ClusterSet:
     slot_to_sid: torch.Tensor  # (C * G,) int64 slot -> shape id, -1 = padding
     families: tuple            # PrimType codes present, ascending
     table: torch.Tensor        # (C, 11, G) f32, see above
+    staged: torch.Tensor       # (C, 4, G, 4) f32, see above
     aabbs: torch.Tensor        # (6, C) f32, see above
     # the lockstep trace probes with the unreduced kernel and takes the
     # first minimum outside it (the form of the JAX lockstep trace); set
@@ -87,9 +94,21 @@ def cluster_from_numpy(arrays: dict, families, device="cpu") -> ClusterSet:
     def t(a):
         return torch.from_numpy(np.array(a, order="C")).to(device)   # a writable copy
 
-    return ClusterSet(lo=t(lo), hi=t(hi), blocks=t(blocks), btype=t(btype),
+    blocks_t, btype_t = t(blocks), t(btype)
+    return ClusterSet(lo=t(lo), hi=t(hi), blocks=blocks_t, btype=btype_t,
                       slot_to_sid=t(sids), families=tuple(int(f) for f in families),
-                      table=t(table), aabbs=t(aabbs))
+                      table=t(table), staged=staged_table(blocks_t, btype_t),
+                      aabbs=t(aabbs))
+
+
+def staged_table(blocks, btype):
+    """(C, 4, G, 4) f32: the triangle slots of (C, G, 9) ``blocks`` in the
+    staged form, computed once on their own device, zero on every slot
+    that is not a triangle (see :class:`ClusterSet`)."""
+    C, G, _ = blocks.shape
+    rows = tk.staged_rows(blocks.reshape(C * G, 9))
+    rows = torch.where(btype.reshape(C * G, 1) == int(PrimType.TRIANGLE), rows, 0.0)
+    return rows.view(C, G, 4, 4).transpose(1, 2).contiguous()
 
 
 def prim_aabbs(rows: np.ndarray, ptypes: np.ndarray):

@@ -19,10 +19,16 @@ test and lexicographic reductions of the JAX flat wavefront, and the
 gathered per-ray block test of ``ops.cluster``.  The select kernels
 split a ray's boxes over several lanes and merge the lanes' candidates
 (:func:`merge_top3`; :func:`select_blocks_lanes_reference` is that route
-in plain PyTorch, for the tests).  A wrapper takes the
-plain version for tensors on the CPU; for CUDA tensors it launches the
-kernel, and raises if the kernel does not build or launch.  Each wrapper
-counts its launches in ``<wrapper>.launches``.
+in plain PyTorch, for the tests).  The probe kernels test triangle slots
+on the cluster set's staged table (``ClusterSet.staged``: the dense
+sweep's staged form, built once per scene) and the other families on its
+11-row table: :func:`probe_blocks_staged`, :func:`probe_min_staged` and
+:func:`probe_pair_staged` are that arithmetic in plain PyTorch, for the
+tests; they differ from the plain versions by rounding in the triangles'
+inside test, which only rays within rounding of an edge can feel.  A
+wrapper takes the plain version for tensors on the CPU; for CUDA tensors
+it launches the kernel, and raises if the kernel does not build or
+launch.  Each wrapper counts its launches in ``<wrapper>.launches``.
 
 Cluster ids are int32 in [0, C); where an entry is +inf (no unvisited
 cluster left) its id is meaningless.  Probe rounds return (t, shape id),
@@ -33,8 +39,10 @@ from __future__ import annotations
 
 import torch
 
+from wasm_pathtracer_tpu_torch.models.scene import PrimType
 from wasm_pathtracer_tpu_torch.ops import cluster as cl
 from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
+from wasm_pathtracer_tpu_torch.ops import traverse_kernels as tk
 
 # the largest dense remainder K3 folds into the select (the TPU kernel's
 # limit; larger remainders go through K6 and the scene kernels)
@@ -124,24 +132,54 @@ def select_scan_reference(cs: cl.ClusterSet, prep, o, d, skip_e, skip_c):
     return select_blocks_reference(cs, o, d, skip_e, skip_c) + (t, sid.to(torch.int32))
 
 
+def _clamped(cs: cl.ClusterSet, cidx):
+    return torch.clamp(cidx.long(), 0, cs.num_clusters - 1)
+
+
 def probe_blocks_reference(cs: cl.ClusterSet, o, d, cidx):
     """Plain PyTorch version of :func:`probe_blocks`."""
-    c = torch.clamp(cidx.long(), 0, cs.num_clusters - 1)
+    c = _clamped(cs, cidx)
     return cl._block_test(o, d, cs.blocks[c], cs.btype[c], cs.families)
+
+
+def _round_min(cs: cl.ClusterSet, t, cidx):
+    """(t, sid) of one round from its (R, G) distances: the first minimum."""
+    tmin, j = torch.min(t, dim=1)
+    sid = cs.slot_to_sid.view(cs.num_clusters, cs.group)[_clamped(cs, cidx), j]
+    return tmin, torch.where(torch.isfinite(tmin), sid, -1).to(torch.int32)
 
 
 def probe_min_reference(cs: cl.ClusterSet, o, d, cidx):
     """Plain PyTorch version of :func:`probe_min`."""
-    c = torch.clamp(cidx.long(), 0, cs.num_clusters - 1)
-    t = probe_blocks_reference(cs, o, d, cidx)           # (R, G)
-    tmin, j = torch.min(t, dim=1)                        # first minimum
-    sid = cs.slot_to_sid.view(cs.num_clusters, cs.group)[c, j]
-    return tmin, torch.where(torch.isfinite(tmin), sid, -1).to(torch.int32)
+    return _round_min(cs, probe_blocks_reference(cs, o, d, cidx), cidx)
 
 
 def probe_pair_reference(cs: cl.ClusterSet, o, d, c1, c2):
     """Plain PyTorch version of :func:`probe_pair`."""
     return probe_min_reference(cs, o, d, c1) + probe_min_reference(cs, o, d, c2)
+
+
+def probe_blocks_staged(cs: cl.ClusterSet, o, d, cidx):
+    """:func:`probe_blocks` by the CUDA kernel's arithmetic in plain
+    PyTorch (used by the tests only): triangle slots from the staged
+    table, every other family by the plain version's block test."""
+    c = _clamped(cs, cidx)
+    R, G = o.shape[0], cs.group
+    rows = cs.staged[c].transpose(1, 2).reshape(R, G, 16)
+    tri = cs.btype[c] == int(PrimType.TRIANGLE)
+    others = tuple(f for f in cs.families if f != int(PrimType.TRIANGLE))
+    t = cl._block_test(o, d, cs.blocks[c], cs.btype[c], others)
+    return torch.where(tri, tk._staged_distances(rows, o, d), t)
+
+
+def probe_min_staged(cs: cl.ClusterSet, o, d, cidx):
+    """:func:`probe_min` by the CUDA kernel's arithmetic (the tests only)."""
+    return _round_min(cs, probe_blocks_staged(cs, o, d, cidx), cidx)
+
+
+def probe_pair_staged(cs: cl.ClusterSet, o, d, c1, c2):
+    """:func:`probe_pair` by the CUDA kernel's arithmetic (the tests only)."""
+    return probe_min_staged(cs, o, d, c1) + probe_min_staged(cs, o, d, c2)
 
 
 # ---------------------------------------------------------------------------
@@ -242,23 +280,29 @@ select_scan.launches = 0
 
 
 def _check_probe(cs: cl.ClusterSet, o, d, cidx, cidx_shape):
+    """Checks the probe's inputs; returns (device, R, the cluster set's
+    leading arguments of ``wpt_probe``: table, staged, C, G, mixed)."""
     dev, R = _check_rays(o, d)
     sk._check("cidx", cidx, cidx_shape + (R,), torch.int32, dev)
     C, G = cs.num_clusters, cs.group
     sk._check("cs.table", cs.table, (C, cl.TABLE_ROWS, G), torch.float32, dev)
-    return dev, R, C, G
+    sk._check("cs.staged", cs.staged, (C, 4, G, 4), torch.float32, dev)
+    if cs.staged.data_ptr() % 16:
+        raise ValueError("cs.staged must be 16-byte aligned (the kernel reads float4)")
+    mixed = int(cs.families != (int(PrimType.TRIANGLE),))
+    return dev, R, (cs.table.data_ptr(), cs.staged.data_ptr(), C, G, mixed)
 
 
 def _probe(cs: cl.ClusterSet, o, d, cidx, name):
     from wasm_pathtracer_tpu_torch.ops import _build
     n_rounds = cidx.shape[0]
-    dev, R, C, G = _check_probe(cs, o, d, cidx, (n_rounds,))
+    dev, R, head = _check_probe(cs, o, d, cidx, (n_rounds,))
     t = torch.empty((n_rounds, R), dtype=torch.float32, device=dev)
     sid = torch.empty((n_rounds, R), dtype=torch.int32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        rc = lib.wpt_probe(cs.table.data_ptr(), C, G, o.data_ptr(), d.data_ptr(),
-                           cidx.data_ptr(), n_rounds, R, t.data_ptr(), sid.data_ptr(),
+        rc = lib.wpt_probe(*head, o.data_ptr(), d.data_ptr(), cidx.data_ptr(), n_rounds,
+                           R, t.data_ptr(), sid.data_ptr(),
                            torch.cuda.current_stream(dev).cuda_stream)
     sk._raise_on(rc, name)
     return t, sid
@@ -305,12 +349,12 @@ def probe_blocks(cs: cl.ClusterSet, o, d, cidx):
     if o.device.type == "cpu":
         return probe_blocks_reference(cs, o, d, cidx)
     from wasm_pathtracer_tpu_torch.ops import _build
-    dev, R, C, G = _check_probe(cs, o, d, cidx, ())
-    dist = torch.empty((R, G), dtype=torch.float32, device=dev)
+    dev, R, head = _check_probe(cs, o, d, cidx, ())
+    dist = torch.empty((R, cs.group), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        rc = lib.wpt_probe_blocks(cs.table.data_ptr(), C, G, o.data_ptr(),
-                                  d.data_ptr(), cidx.data_ptr(), R, dist.data_ptr(),
+        rc = lib.wpt_probe_blocks(*head, o.data_ptr(), d.data_ptr(), cidx.data_ptr(), R,
+                                  dist.data_ptr(),
                                   torch.cuda.current_stream(dev).cuda_stream)
     sk._raise_on(rc, "probe_blocks")
     probe_blocks.launches += 1
@@ -318,3 +362,21 @@ def probe_blocks(cs: cl.ClusterSet, o, d, cidx):
 
 
 probe_blocks.launches = 0
+
+
+def launch_shape(n_rays: int, n_rounds: int) -> dict:
+    """The launch grids of K4/K5 (R rays, ``n_rounds`` rounds) and of K7
+    (R rays), and what the compiler gave each of the probe's kernels
+    (needs the built library, so a card's toolkit)."""
+    import ctypes
+
+    from wasm_pathtracer_tpu_torch.ops import _build
+    out = (ctypes.c_int * 17)()
+    sk._raise_on(_build.library().wpt_probe_launch_shape(n_rays, n_rounds, out),
+                 "probe_launch_shape")
+    keys = ("registers", "shared_bytes", "local_bytes")
+    kernels = ("probe", "probe_mixed", "probe_blocks", "probe_blocks_mixed")
+    return dict(grid_x=out[0], threads_per_block=out[1], lanes_per_round=out[2],
+                blocks_grid_x=out[3], blocks_lanes_per_ray=out[4],
+                **{k: dict(zip(keys, out[5 + 3 * i:8 + 3 * i]))
+                   for i, k in enumerate(kernels)})

@@ -111,10 +111,11 @@ def staged_rows(tri_rows):
 
 
 def _staged_distances(staged, o, d):
-    """(R, n) distances from the staged rows, as the kernel's pair loop
-    computes them (it contracts each chain to fused multiply-adds and
-    takes an approximate reciprocal; this rounds every operation)."""
-    nx, ny, nz, orig = staged[:, 0:4].unbind(dim=1)
+    """(R, n) distances from the staged rows, shared (n, 16) or one set
+    per ray (R, n, 16), as the kernel's pair loop computes them (it
+    contracts each chain to fused multiply-adds and takes an approximate
+    reciprocal; this rounds every operation)."""
+    nx, ny, nz, orig = staged[..., 0:4].unbind(dim=-1)
     ox, oy, oz = (o[:, k, None] for k in range(3))
     dx, dy, dz = (d[:, k, None] for k in range(3))
     ndd = dx * nx + dy * ny + dz * nz
@@ -123,7 +124,7 @@ def _staged_distances(staged, o, d):
     px, py, pz = ox + dx * t, oy + dy * t, oz + dz * t
     inside = t > 0.0
     for i in (4, 8, 12):
-        mx, my, mz, k = staged[:, i:i + 4].unbind(dim=1)
+        mx, my, mz, k = staged[..., i:i + 4].unbind(dim=-1)
         inside = inside & (k + px * mx + py * my + pz * mz >= 0.0)
     return torch.where(inside, t, torch.inf)
 
