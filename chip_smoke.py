@@ -125,6 +125,39 @@ its last line):
 21. The CLI with ``--right-type 2 --right-adaptive --show-sampling``
    (museum) and with ``--debug-view bvh`` (scene 4) writes PNGs that are
    not black.
+22. The backward cell at full width (``grad``): the museum, 262,144 rays
+   (one per pixel of 512x512), NEE, 8 bounces, loss mean(col^2), the
+   gradients with respect to albedo and camera through
+   ``integrator.render_pixels``, with ``checkpoint_bounces`` on, then
+   off.  For each: grad rays/s and forward-only rays/s (medians of three
+   calls), the re-evaluation's share of a step (the step timed again
+   with the winners' distances left detached), the peak device memory,
+   and K1/K2's launches in a step: the forward's once per bounce, with
+   checkpointing again in the backward.  Finite gradients, equal in the
+   two settings within rtol 1e-5 (atol 1e-6 of the largest).  Then K1
+   (phase 3's rule) and K2 (> 99.9% of verdicts agree) against their
+   plain versions on the arguments of one call of the checkpointed step
+   whose launches were counted (262,144 rays), and their times there.
+23. The gradient path on the card against the CPU (``grad_gpu_vs_cpu``):
+   museum 64x64, 4 bounces; paths whose radiance differs (rtol 1e-3,
+   atol 1e-4) at most 0.1%, and the albedo and camera gradients of
+   mean(col^2) over the other paths within 1e-3 relative (atol 1e-3 of
+   the largest).
+24. ``make_train_step`` (``train``): the museum at 512x512, albedo and
+   camera, 3 SGD steps from an albedo scaled by 0.8 toward a render of
+   the scene (K1, K2); then mesh70k with its lights out of the cluster
+   tables, the light rows, 2 steps (K1, K5).  Every step finite and
+   moving its leaves.  In the last light step K1 and K5 are held
+   against their plain versions on the arguments of one call each
+   (phase 3's rule; phase 9's with t's tolerance from
+   ``cancellation_atol``), and timed there; the tables that step
+   gathered for K1 equal a fresh prep's of the moved scene it was
+   given, K1 on them agrees with its plain version on rays aimed at the
+   moved light, and they hit it.
+25. The warps (``edges``): sphere_plane at 64x64 with the screen warp
+   and the NEE warp, camera and light rows on the autograd path: the
+   warped forward equals the plain render (rtol 1e-5), and the gradients
+   agree with the port's on the CPU as in phase 23.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 call that was timed: the larger of its bytes (each input and output
@@ -146,13 +179,15 @@ the run of the path it serves, max |kernel - plain|, kernel, plain and
 bound ms at the main path's shape: museum rays for K1 and K2, mesh70k for
 the others; ``other_shapes`` holds the same four numbers on the main
 path's own rays for K1 and K2, at cloud300k for the others) and a JSON
-status line.  The whole script takes about two and a half
-minutes on an NVIDIA H100 80GB HBM3 at 700 W (110-152 s from a clean
-checkout, the builds included; 42-57 s of it are the four CLI processes).
+status line.  The whole script took 110-152 s on an NVIDIA H100 80GB
+HBM3 at 700 W from a clean checkout before phases 22-25, the builds
+included (42-57 s of it are the four CLI processes); those four add
+about 45 s.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -602,11 +637,43 @@ def rounding_ties(tables, code_of, o, d, dist, light_sid, max_ulps=16, n_jitter=
 HEADLINE_CALL = 172
 
 
+@contextlib.contextmanager
+def recorded_calls(module, which):
+    """Within the block, each wrapper ``module.<name>`` of ``which``
+    records the arguments (tensors cloned) of its call ``which[name]``,
+    counted from 0, into the dict the block gets.  The wrapper counts
+    its launches on whatever its module name holds: the counts the block
+    makes are carried back to the wrapper when it is put back."""
+    import torch
+    saved = {name: getattr(module, name) for name in which}
+    got = {}
+
+    def spy(name, fn):
+        calls = [0]
+
+        def wrapped(*args):
+            if calls[0] == which[name]:
+                got[name] = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                  for a in args)
+            calls[0] += 1
+            return fn(*args)
+        wrapped.launches = fn.launches
+        return wrapped
+
+    try:
+        for name, fn in saved.items():
+            setattr(module, name, spy(name, fn))
+        yield got
+    finally:
+        for name, fn in saved.items():
+            fn.launches = getattr(module, name).launches
+            setattr(module, name, fn)
+
+
 @functools.cache
 def headline_inputs(device):
     """{wrapper name: its arguments} of call ``HEADLINE_CALL`` of K1 and of
-    K2 in one run of the main path (the museum headline), recorded by
-    wrapping the two wrappers in this script for that run."""
+    K2 in one run of the main path (the museum headline)."""
     import torch
     from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
     from wasm_pathtracer_tpu_torch.models import scenes
@@ -617,33 +684,13 @@ def headline_inputs(device):
     scene = scenes.museum(device)
     prep = trace.prepare(scene)
     st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=h["max_bounces"])
-    saved = {name: getattr(sk, name) for name in ("fused_nearest", "fused_occluded")}
-    got = {}
-
-    def spy(name, fn):
-        calls = [0]
-
-        def wrapped(*args):
-            if calls[0] == HEADLINE_CALL:
-                got[name] = tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                                  for a in args)
-            calls[0] += 1
-            return fn(*args)
-        # the wrapper counts its launches on whatever its module name holds
-        wrapped.launches = fn.launches
-        return wrapped
-
-    try:
-        for name, fn in saved.items():
-            setattr(sk, name, spy(name, fn))
+    which = {"fused_nearest": HEADLINE_CALL, "fused_occluded": HEADLINE_CALL}
+    with recorded_calls(sk, which) as got:
         integrator.render_queue(prep, scene, st, initial_camera(0, device),
                                 headline_queue(device, h["S"]), h["width"], h["height"],
                                 4, h["B"])
         torch.cuda.synchronize()
-    finally:
-        for name, fn in saved.items():
-            setattr(sk, name, fn)
-    if set(got) != set(saved):
+    if set(got) != set(which):
         raise AssertionError(f"the headline run made fewer than {HEADLINE_CALL + 1} calls")
     return got
 
@@ -783,19 +830,29 @@ def phase_kernel_k2(device, record):
             rec.update(timed_occluded(tables, code_of, args, "museum"))
 
     tables, o, d, dist, lsid, code_of = headline_inputs(device)["fused_occluded"]
-    occ_k = sk.fused_occluded(tables, o, d, dist, lsid, code_of)
-    occ_p = sk.fused_occluded_reference(tables, o, d, dist, lsid, code_of)
-    torch.cuda.synchronize()
-    agree = (occ_k == occ_p).float().mean().item()
-    log(f"K2 headline call {HEADLINE_CALL}: verdicts agree on {agree:.6f} of "
-        f"{o.shape[0]} rays")
-    if not agree > 0.999:
-        raise AssertionError("K2 disagrees with its plain version on the headline's rays")
-    worst = max(worst, (occ_k != occ_p).float().max().item())
+    worst = max(worst, check_occluded(tables, o, d, dist, lsid, code_of,
+                                      f"headline call {HEADLINE_CALL}"))
     rec["other_shapes"] = {"headline_rays": timed_occluded(tables, code_of,
                                                            (o, d, dist, lsid),
                                                            "headline rays")}
     rec["max_abs_err"] = worst
+
+
+def check_occluded(tables, o, d, dist, lsid, code_of, what):
+    """K2 against its plain version on the rays of one call of a path:
+    verdicts agree on > 99.9% of them.  Returns 1.0 if any verdict
+    differs, else 0.0 (a verdict's largest error)."""
+    import torch
+    from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
+    occ_k = sk.fused_occluded(tables, o, d, dist, lsid, code_of)
+    occ_p = sk.fused_occluded_reference(tables, o, d, dist, lsid, code_of)
+    torch.cuda.synchronize()
+    agree = (occ_k == occ_p).float().mean().item()
+    log(f"K2 {what}: verdicts agree on {agree:.6f} of {o.shape[0]} rays, occluded rate "
+        f"{occ_p.float().mean().item():.3f}")
+    if not agree > 0.999:
+        raise AssertionError(f"K2 disagrees with its plain version on {what}")
+    return (occ_k != occ_p).float().max().item()
 
 
 def busy_share(fn, kernels):
@@ -1149,8 +1206,7 @@ FLAT_CALL = 84
 @functools.cache
 def flat_inputs(device):
     """(cluster set, o, d, c1, c2) of call ``FLAT_CALL`` of K4 in one run of
-    phase 10's path (mesh70k through ``render_queue_flat``), recorded by
-    wrapping ``probe_pair`` in this script for that run."""
+    phase 10's path (mesh70k through ``render_queue_flat``)."""
     import torch
     from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
     from wasm_pathtracer_tpu_torch.ops import probe_kernels as pk
@@ -1158,27 +1214,14 @@ def flat_inputs(device):
     h = MESH
     scene, prep = mesh70k(device)
     st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=h["max_bounces"])
-    saved, got, calls = pk.probe_pair, [], [0]
-
-    def wrapped(*args):
-        if calls[0] == FLAT_CALL:
-            got.extend(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
-        calls[0] += 1
-        return saved(*args)
-
-    # the wrapper counts its launches on whatever its module name holds
-    wrapped.launches = saved.launches
-    try:
-        pk.probe_pair = wrapped
+    with recorded_calls(pk, {"probe_pair": FLAT_CALL}) as got:
         wavefront.render_queue_flat(prep, scene, st, mesh_camera(device),
                                     headline_queue(device, h["S"]), h["width"],
                                     h["height"], 4, h["B"])
         torch.cuda.synchronize()
-    finally:
-        pk.probe_pair = saved
     if not got:
         raise AssertionError(f"the flat run made fewer than {FLAT_CALL + 1} K4 calls")
-    return tuple(got)
+    return got["probe_pair"]
 
 
 def probe_bounds(cs, o, c1, c2=None):
@@ -1682,6 +1725,389 @@ def phase_cli_views(device, record):
     cli_render(4, ["--debug-view", "bvh"])
 
 
+# ---------------------------------------------------------------------------
+# the gradient slice: render_pixels under autograd, the train step, the warps
+# ---------------------------------------------------------------------------
+
+GRAD = dict(width=512, height=512, max_bounces=8, calls=3)
+# the K1 and K2 calls of a gradient step (of 16 each) whose inputs phase
+# grad checks: bounce 3 of the forward pass
+GRAD_CALL = 3
+# the K1 (of 32) and K5 (of ~900) calls of a mesh70k light step whose
+# inputs phase train checks: bounce 2's nearest hit, an early round of
+# the first cluster trace (most rays still probing) and a middle round
+TRAIN_CALLS = ({"fused_nearest": 4, "probe_min": 8}, {"probe_min": 450})
+
+
+def _museum_leaves(scene, cam, device):
+    """Fresh leaf tensors for the museum's albedo and camera."""
+    from wasm_pathtracer_tpu_torch.models.camera import Camera
+    leaves = dict(albedo=scene.albedo.clone(), location=cam.location.clone(),
+                  rot_x=cam.rot_x.clone(), rot_y=cam.rot_y.clone())
+    for x in leaves.values():
+        x.requires_grad_(True)
+    return (scene.with_materials(albedo=leaves["albedo"]),
+            Camera(leaves["location"], leaves["rot_x"], leaves["rot_y"]), leaves)
+
+
+def grad_call(prep, scene, st, cam, px, py, w, h, seed, mask=None):
+    """One step of the backward cell: loss mean(col^2) (over ``mask``'s
+    pixels where given) and its gradients with respect to the museum's
+    albedo and the camera.  Returns (col, {leaf: grad})."""
+    import torch
+    from wasm_pathtracer_tpu_torch.ops import integrator
+    sc, c, leaves = _museum_leaves(scene, cam, px.device)
+    col, _ = integrator.render_pixels(prep, sc, st, c, px, py, w, h, seed)
+    err = col ** 2 if mask is None else col ** 2 * mask[:, None]
+    grads = torch.autograd.grad(err.sum() / (w * h), list(leaves.values()))
+    return col.detach(), dict(zip(leaves, grads))
+
+
+def phase_grad(device, record):
+    """The backward cell at full width: museum, 512x512 = 262,144 rays,
+    NEE, 8 bounces, loss mean(col^2), gradients with respect to albedo and
+    camera, with per-bounce checkpointing on and then off.  Then K1 and
+    K2 against their plain versions on the arguments of call
+    ``GRAD_CALL`` of the checkpointed step whose launches were counted."""
+    import torch
+    from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+    from wasm_pathtracer_tpu_torch.models import scenes
+    from wasm_pathtracer_tpu_torch.models.camera import initial_camera
+    from wasm_pathtracer_tpu_torch.ops import integrator, trace
+    from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
+    g = GRAD
+    w, h = g["width"], g["height"]
+    scene = scenes.museum(device)
+    prep, cam = trace.prepare(scene), initial_camera(0, device)
+    pix = torch.arange(w * h, device=device)
+    px, py = pix % w, pix // w
+    rec, grads = {}, {}
+    for remat in (True, False):
+        st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=g["max_bounces"],
+                            checkpoint_bounces=remat)
+        key = "remat" if remat else "noremat"
+
+        def fwd():
+            with torch.no_grad():
+                return integrator.render_pixels(prep, scene, st, cam, px, py, w, h, SEED)[0]
+
+        fwd()
+        grad_call(prep, scene, st, cam, px, py, w, h, SEED)        # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        fwd()
+        torch.cuda.synchronize()
+        fwd_launches = read_counts()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        with recorded_calls(sk, {"fused_nearest": GRAD_CALL,
+                                 "fused_occluded": GRAD_CALL}) as got:
+            col, grads[key] = grad_call(prep, scene, st, cam, px, py, w, h, SEED)
+            torch.cuda.synchronize()
+        launches = read_counts()
+        if remat:
+            path_inputs, path_launches = got, launches
+        peak = torch.cuda.max_memory_allocated(device)
+        expect_launches(launches, 0, at_least_once=("fused_nearest", "fused_occluded"))
+        for name in ("fused_nearest", "fused_occluded"):
+            n, n_fwd = launches[name], fwd_launches[name]
+            ok = n_fwd < n <= 2 * n_fwd if remat else n == n_fwd
+            if not ok:
+                raise AssertionError(f"grad {key}: {name} launched {n} times in a step, "
+                                     f"{n_fwd} in the forward alone")
+        if not (bool(torch.isfinite(col).all())
+                and all(bool(torch.isfinite(x).all()) for x in grads[key].values())):
+            raise AssertionError(f"grad {key}: non-finite radiance or gradient")
+        times, fwd_times = [], []
+        for _ in range(g["calls"]):
+            t0 = time.perf_counter()
+            grad_call(prep, scene, st, cam, px, py, w, h, SEED)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            fwd()
+            torch.cuda.synchronize()
+            fwd_times.append(time.perf_counter() - t0)
+        # the re-evaluation's share of a step: the same step with the
+        # winners' distances left detached (the gradient then misses the
+        # hit distances' terms; only its time is read)
+        bare = []
+        real_winner_t = trace.winner_t
+        trace.winner_t = lambda prep_, scene_, o, d, t_, sid: t_
+        try:
+            for _ in range(g["calls"]):
+                t0 = time.perf_counter()
+                grad_call(prep, scene, st, cam, px, py, w, h, SEED)
+                torch.cuda.synchronize()
+                bare.append(time.perf_counter() - t0)
+        finally:
+            trace.winner_t = real_winner_t
+        t, tf, tb = (float(np.median(x)) for x in (times, fwd_times, bare))
+        rec[key] = dict(grad_rays_per_sec=w * h / t, forward_rays_per_sec=w * h / tf,
+                        grad_seconds=times, forward_seconds=fwd_times,
+                        reeval_share=1.0 - tb / t, seconds_without_reeval=bare,
+                        max_memory_allocated=peak, launches_per_step=launches,
+                        forward_launches=fwd_launches)
+        log(f"grad {key}: museum {w}x{h} NEE {g['max_bounces']} bounces, {w * h} rays: "
+            f"grad {w * h / t:.1f} rays/s (median of {times}), forward {w * h / tf:.1f} "
+            f"rays/s (median of {fwd_times}), re-evaluation {100 * (1 - tb / t):.1f}% of "
+            f"a step (without it {bare}), max memory {peak / 2**30:.3f} GiB, launches "
+            f"per step {launches} (forward alone {fwd_launches}); {card_line()}")
+    for k in grads["remat"]:
+        a, b = grads["remat"][k], grads["noremat"][k]
+        scale = float(b.abs().max())
+        if not torch.allclose(a, b, rtol=1e-5, atol=1e-6 * scale):
+            raise AssertionError(f"grad: {k} differs with and without checkpointing "
+                                 f"(max |diff| {float((a - b).abs().max()):.3g})")
+    log("grad: gradients with and without checkpointing agree (rtol 1e-5)")
+    record["grad_path"] = rec
+    check_path_inputs(record, path_inputs, f"grad path call {GRAD_CALL}", path_launches)
+
+
+def check_path_inputs(record, got, what, launches):
+    """K1, K2 and K5 against their plain versions on the arguments ``got``
+    (``recorded_calls``) of one call of a path, at the path's own shapes,
+    and their times there; ``launches`` are the counts of the run that
+    made the call."""
+    import torch
+    from wasm_pathtracer_tpu_torch.ops import probe_kernels as pk
+    log(f"{what}: checking {sorted(got)} on the arguments of a run whose launches were "
+        f"{launches}")
+    key = what.replace(" ", "_")
+    if "fused_nearest" in got:
+        tables, o, d, sid_map = got["fused_nearest"]
+        err, _ = check_nearest(tables, o, d, sid_map, what)
+        rec = record.setdefault("fused_nearest", {})
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+        rec.setdefault("other_shapes", {})[key] = timed_nearest(tables, o, d, sid_map, what)
+    if "fused_occluded" in got:
+        tables, o, d, dist, lsid, code_of = got["fused_occluded"]
+        err = check_occluded(tables, o, d, dist, lsid, code_of, what)
+        rec = record.setdefault("fused_occluded", {})
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+        rec.setdefault("other_shapes", {})[key] = timed_occluded(
+            tables, code_of, (o, d, dist, lsid), what)
+    if "probe_min" in got:
+        cs, o, d, cidx = got["probe_min"]
+        out_k = pk.probe_min(cs, o, d, cidx)
+        out_p = pk.probe_min_reference(cs, o, d, cidx)
+        torch.cuda.synchronize()
+        atol = cancellation_atol(cs, o, d, cidx, out_p[1])
+        err, ties, rate = check_probe(cs, o, d, cidx, out_k, out_p, f"K5 {what}", atol)
+        ms = cuda_ms(lambda: pk.probe_min(cs, o, d, cidx), 20)
+        plain_ms = cuda_ms(lambda: pk.probe_min_reference(cs, o, d, cidx), 3, graph=False)
+        b_ms, b_by = probe_bounds(cs, o, cidx)["probe_min"]
+        log(f"K5 {what} B={o.shape[0]}: max |dt| {err:.3g}, {ties} ties, hit rate "
+            f"{rate:.3f}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+            f"by {b_by}; SM clock now / max {sm_clocks()}")
+        rec = record.setdefault("probe_min", {})
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+        rec.setdefault("other_shapes", {})[key] = dict(ms=ms, plain_ms=plain_ms,
+                                                       bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_grad_gpu_vs_cpu(device, record):
+    """The gradient path on the card (K1/K2 decide, the winners'
+    distances re-evaluated) against the port on the CPU (plain versions):
+    museum 64x64, 4 bounces.  Paths whose radiance differs (a discrete
+    decision taken the other way on float rounding) must be <= 0.1%; the
+    albedo and camera gradients of mean(col^2) over the other paths agree
+    at rtol 1e-3."""
+    import torch
+    from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+    from wasm_pathtracer_tpu_torch.models import scenes
+    from wasm_pathtracer_tpu_torch.models.camera import initial_camera
+    from wasm_pathtracer_tpu_torch.ops import trace
+    W = H = 64
+    st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=4)
+    setups = {}
+    for key, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        scene = scenes.museum(dev)
+        pix = torch.arange(W * H, device=dev)
+        setups[key] = (trace.prepare(scene), scene, st, initial_camera(0, dev), pix % W,
+                       pix // W, W, H, SEED)
+    cols = {k: grad_call(*s)[0].cpu() for k, s in setups.items()}
+    same = torch.isclose(cols["card"], cols["cpu"], rtol=1e-3, atol=1e-4).all(-1)
+    share = 1.0 - same.float().mean().item()
+    grads = {k: grad_call(*s, mask=same.to(s[4].device).float())[1]
+             for k, s in setups.items()}
+    worst = {}
+    for k in grads["cpu"]:
+        a, b = grads["card"][k].cpu(), grads["cpu"][k]
+        worst[k] = float(((a - b).abs() / (b.abs() + 1e-3 * b.abs().max())).max())
+    log(f"grad GPU vs CPU museum {W}x{H} {st.max_bounces} bounces: paths that differ "
+        f"{share:.5f} ({int((~same).sum())} of {W * H}); gradients over the others, max "
+        f"|diff| / (|cpu| + 1e-3 max|cpu|): {worst}")
+    record["grad_gpu_vs_cpu"] = dict(paths_differ_share=share, worst_rel=worst)
+    if share > 1e-3:
+        raise AssertionError("grad GPU vs CPU: more than 0.1% of paths differ")
+    if max(worst.values()) > 1e-3:
+        raise AssertionError("grad GPU vs CPU: gradients disagree beyond rtol 1e-3")
+
+
+def phase_train(device, record):
+    """``make_train_step`` on the card: the museum at 512x512 with albedo
+    and camera (3 SGD steps), then mesh70k with its lights out of the
+    cluster tables and the light rows trained (2 steps).  In the last
+    light step, K1 and K5 against their plain versions on the arguments
+    of calls ``TRAIN_CALLS``; the tables that step gathered for K1 equal
+    a fresh prep's of the moved scene it was given, and K1 on them
+    agrees with its plain version on rays aimed at the moved light, and
+    hits it."""
+    import torch
+    from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+    from wasm_pathtracer_tpu_torch.models import scenes
+    from wasm_pathtracer_tpu_torch.models.camera import initial_camera
+    from wasm_pathtracer_tpu_torch.ops import bvh, integrator, trace
+    from wasm_pathtracer_tpu_torch.ops import probe_kernels as pk
+    from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
+    from wasm_pathtracer_tpu_torch.parallel import make_train_step
+    g = GRAD
+    w, h = g["width"], g["height"]
+    st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=g["max_bounces"])
+    rec = {}
+
+    def run(what, step, scene, cam, target, n_steps, leaves, once, which=()):
+        """``n_steps`` steps from (scene, cam); the last one records, for
+        each dict of ``which``, those calls of K1 and K5 (one dict of
+        arguments each).  Returns the last step's scene, the scene it
+        returned, the per-step records and the recorded calls."""
+        per_step = []
+        for k in range(n_steps):
+            torch.cuda.synchronize()
+            reset_counts()
+            recs = []
+            with contextlib.ExitStack() as stack:
+                for calls in (which if k == n_steps - 1 else ()):
+                    recs.append({})
+                    for module, names in ((sk, ("fused_nearest",)), (pk, ("probe_min",))):
+                        recs[-1][module] = stack.enter_context(recorded_calls(
+                            module, {n: c for n, c in calls.items() if n in names}))
+                t0 = time.perf_counter()
+                loss, scene2, cam2 = step(scene, cam, target, 100 + k)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            got = [{n: a for r in rec.values() for n, a in r.items()} for rec in recs]
+            launches = read_counts()
+            expect_launches(launches, 0, at_least_once=once)
+            moved = {n: float((get(scene2, cam2) - get(scene, cam)).abs().max())
+                     for n, get in leaves.items()}
+            log(f"train {what} step {k}: loss {float(loss):.6g}, {dt:.3f} s, leaves moved "
+                f"by {moved}, launches {launches}")
+            if not (np.isfinite(float(loss)) and all(m > 0 for m in moved.values())):
+                raise AssertionError(f"train {what}: step {k} is not finite or moved nothing")
+            per_step.append(dict(loss=float(loss), seconds=dt, launches=launches))
+            last, scene, cam = scene, scene2, cam2
+        return last, scene, per_step, got
+
+    scene = scenes.museum(device)
+    prep, cam = trace.prepare(scene), initial_camera(0, device)
+    pix = torch.arange(w * h, device=device)
+    with torch.no_grad():
+        target = integrator.render_pixels(prep, scene, st, cam, pix % w, pix // w, w, h,
+                                          1)[0].reshape(h, w, 3)
+    start = scene.with_materials(albedo=torch.clamp(scene.albedo * 0.8, 0.0, 1.0))
+    step = make_train_step(prep, st, w, h, lr=1e-3)
+    rec["museum"] = run(
+        "museum albedo+camera", step, start, cam, target, 3,
+        dict(albedo=lambda s, c: s.albedo, rot_x=lambda s, c: c.rot_x),
+        ("fused_nearest", "fused_occluded"))[2]
+
+    mesh = scenes.mesh_scene(scenes.surface_mesh(188), device)
+    mprep = bvh.attach_clusters(trace.prepare(mesh), mesh, exclude_lights=True)
+    if mprep.cluster is None or mprep.cluster.has_baked_lights:
+        raise AssertionError("mesh70k: the lights must stay out of the cluster tables")
+    step = make_train_step(mprep, st, w, h, lr=0.05, train_lights=True,
+                           train_materials=False, train_camera=False)
+    lid = mesh.light_shape.long()
+    given, _, rec["mesh70k_lights"], got = run(
+        "mesh70k lights", step, mesh, mesh_camera(device),
+        torch.zeros((h, w, 3), device=device) + 0.3, 2,
+        dict(light_rows=lambda s, c: s.params[lid]), ("fused_nearest", "probe_min"),
+        TRAIN_CALLS)
+    for calls, args in zip(TRAIN_CALLS, got):
+        if set(args) != set(calls):
+            raise AssertionError(f"train: the light step made too few calls to record "
+                                 f"{calls} (recorded {sorted(args)})")
+        check_path_inputs(record, args, "train light step " + " ".join(
+            f"{n} call {c}" for n, c in calls.items()), rec["mesh70k_lights"][-1]["launches"])
+
+    # the tables the last step gathered trace the light where the step
+    # before it moved it
+    tables, _, _, sid_map = got[0]["fused_nearest"]
+    fresh = trace.prepare_from_sets(given, [getattr(mprep, a) for a in trace.INDEX_FIELDS])
+    if not torch.equal(tables.flat, fresh.tables.flat):
+        raise AssertionError("train: the step's tables are not the moved scene's")
+    if torch.equal(tables.flat, mprep.tables.flat):
+        raise AssertionError("train: the light did not move in the step's tables")
+    c = given.params[lid][:, :9].reshape(-1, 3, 3).mean(1)
+    r = torch.randn((4096, 3), generator=torch.Generator().manual_seed(3)).to(device)
+    tgt = c[torch.arange(4096, device=device) % c.shape[0]] + 0.2 * r * torch.tensor(
+        [1.0, 0.0, 1.0], device=device)
+    o = tgt - torch.tensor([0.0, 4.0, 0.0], device=device) + 0.5 * r
+    d = tgt - o
+    d = (d / d.norm(dim=-1, keepdim=True)).contiguous()
+    o = o.contiguous()
+    check_nearest(tables, o, d, sid_map, "moved light (the step's tables)")
+    _, sid = sk.fused_nearest(tables, o, d, sid_map)
+    on_light = torch.isin(sid, lid).float().mean().item()
+    log(f"train: {on_light:.3f} of the rays aimed at the moved light hit it")
+    if on_light < 0.5:
+        raise AssertionError("train: the step's tables miss the moved light")
+    record["train"] = rec
+
+
+def phase_edges(device, record):
+    """The warps on the card: sphere_plane at 64x64, the screen warp
+    (``render_pixels_edgeaware``) and the NEE warp (``edge_aware_nee``)
+    with camera and light rows on the autograd path.  The forward equals
+    the plain render's; the camera and light-row gradients agree with
+    the port's on the CPU over the paths whose radiance agrees."""
+    import torch
+    from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+    from wasm_pathtracer_tpu_torch.models import scenes
+    from wasm_pathtracer_tpu_torch.models.camera import Camera
+    from wasm_pathtracer_tpu_torch.ops import edges, integrator, trace
+    W = H = 64
+    st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=4, rr_clamp_min=0.9,
+                        rr_clamp_max=0.9, edge_aware_nee=True)
+
+    def render(dev, warp, mask=None):
+        scene = scenes.sphere_plane(dev)
+        leaves = dict(location=torch.tensor([0.0, 1.5, -2.0], device=dev),
+                      rot_x=torch.tensor(0.45, device=dev), rot_y=torch.tensor(0.0, device=dev),
+                      light_rows=scene.params[scene.light_shape.long()].clone())
+        for x in leaves.values():
+            x.requires_grad_(True)
+        sc = scene.with_light_rows(leaves["light_rows"])
+        cam = Camera(leaves["location"], leaves["rot_x"], leaves["rot_y"])
+        pix = torch.arange(W * H, device=dev)
+        fn = edges.render_pixels_edgeaware if warp else integrator.render_pixels
+        s = st if warp else st.replace(edge_aware_nee=False)
+        col, _ = fn(trace.prepare(scene), sc, s, cam, pix % W, pix // W, W, H, 5)
+        m = torch.ones(W * H, device=dev) if mask is None else mask.to(dev)
+        grads = torch.autograd.grad((col.mean(-1) * m).sum() / (W * H), list(leaves.values()))
+        return col.detach().cpu(), {k: x.cpu() for k, x in zip(leaves, grads)}
+
+    col_w, _ = render(device, True)
+    col_p, _ = render(device, False)
+    if not torch.allclose(col_w, col_p, rtol=1e-5, atol=1e-6):
+        raise AssertionError("edges: the warped render differs from the plain one")
+    col_c, _ = render(torch.device("cpu"), True)
+    same = torch.isclose(col_w, col_c, rtol=1e-3, atol=1e-4).all(-1)
+    share = 1.0 - same.float().mean().item()
+    _, g_g = render(device, True, same.float())
+    _, g_c = render(torch.device("cpu"), True, same.float())
+    worst = {k: float(((g_g[k] - g_c[k]).abs() / (g_c[k].abs() + 1e-3 * g_c[k].abs().max()))
+                      .max()) for k in g_c}
+    log(f"edges sphere_plane {W}x{H}: warped forward equals the plain render; GPU vs CPU "
+        f"paths that differ {share:.5f}; gradients (camera {[float(g_g[k]) for k in ('rot_x',)]}"
+        f") over the others, max |diff| / (|cpu| + 1e-3 max|cpu|): {worst}")
+    record["edges"] = dict(paths_differ_share=share, worst_rel=worst)
+    if share > 1e-3 or max(worst.values()) > 1e-3:
+        raise AssertionError("edges: the card's warped gradients disagree with the CPU's")
+
+
 PHASES = {
     "k1": phase_kernel_k1,
     "k2": phase_kernel_k2,
@@ -1700,6 +2126,10 @@ PHASES = {
     "pnee": phase_pnee,
     "adaptive": phase_adaptive,
     "cli_views": phase_cli_views,
+    "grad": phase_grad,
+    "grad_gpu_vs_cpu": phase_grad_gpu_vs_cpu,
+    "train": phase_train,
+    "edges": phase_edges,
 }
 
 
@@ -1749,7 +2179,8 @@ def main(argv) -> int:
                     library_ms=None, other_shapes=record[name].get("other_shapes", {}))
                for name, rep, src in KERNELS]
     log(json.dumps({k: record[k] for k in ("main_path", "mesh_path", "sweep_path",
-                                           "pnee_path", "adaptive_1080p")}))
+                                           "pnee_path", "adaptive_1080p", "grad_path",
+                                           "grad_gpu_vs_cpu", "train", "edges")}))
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

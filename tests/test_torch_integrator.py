@@ -155,9 +155,10 @@ def test_render_queue_empty_and_zero_bounce():
 @pytest.mark.parametrize("kw", [dict(render_type=RenderType.PNEE),
                                 dict(edge_aware_nee=True)])
 def test_unported_estimators_raise(kw):
-    """Edge-aware NEE is not ported and raises.  PNEE is: without a
-    photon grid it renders as plain NEE, in the port as in the JAX
-    package."""
+    """Edge-aware NEE is a gradient switch: the forward queue refuses it
+    (``render_pixels`` takes it, ``tests/test_torch_edges.py``).  PNEE
+    without a photon grid renders as plain NEE, in the port as in the
+    JAX package."""
     scene = tscenes.sphere_plane()
     cam = Camera.create(*CAMERAS["sphere_plane"])
     if "edge_aware_nee" in kw:

@@ -13,7 +13,9 @@ Layout
 - ``config``   — render settings (estimator, bounce cap, lanes).
 - ``models``   — scene tables, built-in scenes, camera.
 - ``ops``      — intersection math, the CUDA scene kernels and their
-                 plain versions, tracing, the integrator, accumulation.
+                 plain versions, tracing, the integrator, accumulation,
+                 the edge-aware warps of the gradient path.
+- ``parallel`` — the inverse-rendering train step.
 - ``runtime``  — session API and CLI.
 - ``utils``    — vec math, pcg3d RNG, PNG writer.
 

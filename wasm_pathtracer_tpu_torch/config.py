@@ -4,10 +4,14 @@ the port reads).
 The JAX package's ``config`` module is itself free of JAX, but the port
 must run where no file of the JAX package is importable, so it carries
 its own copy.  Names, defaults and enum values are the JAX package's,
-so the same settings describe the same render in both packages.  The
-field of the one path not ported yet (edge-aware NEE) is kept only so
-that asking for it raises ``NotImplementedError`` instead of rendering
-something else.
+so the same settings describe the same render in both packages.
+
+The JAX package's ``early_exit`` is left out.  It chooses between a
+``while_loop`` that ends once every path is dead and a ``scan`` that
+reverse-mode differentiation needs.  The port's lockstep loop
+(``ops.integrator.trace_paths``) breaks on the host when no path is
+alive; a Python loop with ``break`` is reverse-differentiable in
+PyTorch, and the bounces it skips add nothing, so one form serves both.
 """
 
 from __future__ import annotations
@@ -33,11 +37,22 @@ class RenderSettings:
     max_bounces: int = 16
     # epsilon bias for shadow/bounce ray origins
     epsilon: float = 2e-4
+    # recompute each bounce in the backward pass (torch.utils.checkpoint)
+    # instead of keeping its intermediates: about twice the bounce work
+    # for memory that no longer grows with max_bounces
+    checkpoint_bounces: bool = True
     # Russian roulette keep-chance clamp
     rr_clamp_min: float = 0.1
     rr_clamp_max: float = 0.9
-    # not ported yet: asking for it raises
+    # edge-aware NEE gradients (ops.edges.nee_warp): a value-preserving
+    # warp of the light-sample uniforms, so light-geometry gradients
+    # carry the shadow boundary's flux; each NEE sample adds
+    # edge_nee_aux clearance probes of the occluders within
+    # edge_nee_radius in uniform space.  A gradient switch: the forward
+    # drivers (render_queue, the flat wavefront) refuse it
     edge_aware_nee: bool = False
+    edge_nee_aux: int = 6
+    edge_nee_radius: float = 0.12
     # photon preprocess budget of a PNEE instance, and how many photons
     # one compute tick buys
     total_photons: int = 300_000

@@ -118,6 +118,28 @@ class SceneData:
         return dataclasses.replace(self, **{
             k: getattr(self, k).to(device) for k in TENSOR_FIELDS})
 
+    def detach(self) -> "SceneData":
+        """The same tables cut from any autograd graph."""
+        return dataclasses.replace(self, **{
+            k: getattr(self, k).detach() for k in TENSOR_FIELDS})
+
+    def with_materials(self, albedo=None, emission=None, mat_extra=None) -> "SceneData":
+        """A new scene with the given material leaves (the differentiable
+        ones: gradients flow into the tensors given)."""
+        return dataclasses.replace(
+            self,
+            albedo=self.albedo if albedo is None else albedo,
+            emission=self.emission if emission is None else emission,
+            mat_extra=self.mat_extra if mat_extra is None else mat_extra)
+
+    def with_light_rows(self, rows) -> "SceneData":
+        """A new scene whose area lights' (L, 9) geometry rows are
+        ``rows``; the shape table is rebuilt out of place, so gradients
+        flow into ``rows`` (the NEE estimator's area, cosines, distance
+        and sample point, and the lights' hit distances)."""
+        return dataclasses.replace(self, params=self.params.index_put(
+            (self.light_shape.long(),), rows))
+
 
 def scene_from_numpy(arrays: dict, num_inf: int, num_shapes: int,
                      num_lights: int, num_plights: int,

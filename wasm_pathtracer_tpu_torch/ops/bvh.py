@@ -494,6 +494,8 @@ def attach_clusters(prep: trace.ScenePrep, scene: SceneData, num_bins: int = 16,
     order = leaf_order(lo, hi, num_bins)
     cs = cl.build_clusters(rows[order], ptypes[order], ids[order],
                            group or cl.CLUSTER_SIZE, device=scene.device)
+    cs = dataclasses.replace(cs, has_baked_lights=bool(
+        light_sids.size and np.isin(light_sids, ids).any()))
     for f in families:
         sets[_FAM_IDX[f]] = kept_dense.get(_FAM_IDX[f], np.zeros(0, np.int64))
     return trace.prepare_from_sets(scene, [sets[a] for a in trace.INDEX_FIELDS],

@@ -62,6 +62,11 @@ class ClusterSet:
     # first minimum outside it (the form of the JAX lockstep trace); set
     # with dataclasses.replace
     unreduced_probe: bool = False
+    # whether an area light is baked into the tables: light-geometry
+    # training must then refuse the prep, since a moved light would stay
+    # where the tables hold it (``ops.bvh.attach_clusters`` sets it;
+    # ``exclude_lights=True`` keeps the lights in the dense remainder)
+    has_baked_lights: bool = True
 
     @property
     def num_clusters(self) -> int:
@@ -208,7 +213,7 @@ def _sphere_block_test(o, d, block):
     b = 2.0 * torch.sum(oc * d[:, None, :], -1)
     c = torch.sum(oc * oc, -1) - rad * rad
     disc = b * b - 4.0 * c
-    sq = torch.sqrt(torch.where(disc > 0.0, disc, 1.0))
+    sq = vm.sqrt(torch.where(disc > 0.0, disc, 1.0))
     sq = torch.where(disc > 0.0, sq, 0.0)
     t0 = (-b + sq) * 0.5
     t1 = (-b - sq) * 0.5

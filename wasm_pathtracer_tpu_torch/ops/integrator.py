@@ -16,6 +16,17 @@ so a path draws the same numbers in both packages.
 Two drivers share the per-bounce body :func:`_bounce_step`:
 :func:`trace_paths` (a fixed batch in lockstep) and :func:`render_queue`
 (the persistent wavefront with path regeneration, the main path).
+
+:func:`trace_paths` and :func:`render_pixels` are differentiable in the
+scene's material leaves, its shape table (light rows) and the camera.
+Which shape a ray hits and whether a shadow ray is occluded are
+constants, as in the JAX package: the kernels decide them on detached
+rays, and the winner's distance is re-evaluated under autograd
+(``trace.trace_scene``).  The pcg3d draws do not depend on the
+parameters.  With ``RenderSettings.checkpoint_bounces`` each bounce is
+recomputed in the backward pass instead of keeping its intermediates,
+and with ``edge_aware_nee`` the NEE light sample goes through the
+shadow-boundary warp of ``ops.edges``.
 """
 
 from __future__ import annotations
@@ -23,6 +34,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
 from wasm_pathtracer_tpu_torch.models.camera import Camera, primary_rays
@@ -50,9 +62,9 @@ _SLOT_MAT = 5
 def sample_cosine_hemisphere(n, r1, r2):
     """Cosine-weighted hemisphere sample around ``n``.  Returns (wi, pdf)."""
     two_pi_r1 = 2.0 * math.pi * r1
-    s = torch.sqrt(torch.clamp(1.0 - r2, min=0.0))
+    s = vm.sqrt(torch.clamp(1.0 - r2, min=0.0))
     x = torch.cos(two_pi_r1) * s
-    y = torch.sqrt(r2)
+    y = vm.sqrt(r2)
     z = torch.sin(two_pi_r1) * s
     t, b = vm.tangent_frame(n)
     wi = vm.normalize(x[..., None] * t + y[..., None] * n + z[..., None] * b)
@@ -66,7 +78,7 @@ def _refract_dir(d, n, eta):
     cos_i = -vm.dot(d, n)
     sin2_t = eta * eta * torch.clamp(1.0 - cos_i * cos_i, min=0.0)
     tir = sin2_t > 1.0
-    cos_t = torch.sqrt(torch.where(sin2_t < 1.0, 1.0 - sin2_t, 1.0))
+    cos_t = vm.sqrt(torch.where(sin2_t < 1.0, 1.0 - sin2_t, 1.0))
     cos_t = torch.where(tir, 0.0, cos_t)
     refr = eta[..., None] * d + (eta * cos_i - cos_t)[..., None] * n
     return vm.normalize(refr, eps=1e-12), tir
@@ -76,6 +88,20 @@ def _schlick(cos_i, n1, n2):
     """Schlick's Fresnel approximation."""
     r0 = ((n1 - n2) / (n1 + n2)) ** 2
     return r0 + (1.0 - r0) * (1.0 - cos_i) ** 5
+
+
+def _clip(x, lo: float, hi: float):
+    """``torch.clamp``, with the JAX package's gradient where ``x`` lies
+    exactly on a bound: ``jnp.clip`` is a max and a min, whose gradients
+    split a tie in half, where ``torch.clamp`` passes all of it.  An
+    albedo of 0.9 puts the Russian-roulette keep chance right on its
+    upper bound.  Off an autograd path it stays one ``torch.clamp``, so
+    the forward drivers (:func:`render_queue`, the flat wavefront)
+    launch the same device kernels a bounce as before the gradient path
+    came (``chip_smoke.py``'s phase main counts them)."""
+    if not x.requires_grad:
+        return torch.clamp(x, lo, hi)
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
 
 
 def _light_table(scene: SceneData):
@@ -91,21 +117,25 @@ def _light_table(scene: SceneData):
 
 
 def _check_supported(settings: RenderSettings):
+    """The forward drivers (:func:`render_queue`, the flat wavefront)
+    refuse the gradient-only edge-aware NEE."""
     if settings.edge_aware_nee:
-        raise NotImplementedError("edge-aware NEE comes with the gradient "
-                                  "slice of the port")
+        raise NotImplementedError("edge-aware NEE is a gradient switch: "
+                                  "render through integrator.render_pixels "
+                                  "or trace_paths")
 
 
 def _shade_core(scene: SceneData, settings: RenderSettings, light_tab,
                 o, d, throughput, color, alive, hdb, absorb,
                 slot0, ray_id, seed, t, sid, hit, packed_rows=None,
-                photon_grid=None):
+                photon_grid=None, prep=None):
     """Everything a bounce does after the scene trace except resolving
     the NEE occlusion query.
 
     ``slot0`` is the RNG slot base: a scalar under :func:`trace_paths`,
     a per-lane tensor under :func:`render_queue`.  ``photon_grid`` guides
-    the light pick when the settings ask for PNEE.
+    the light pick when the settings ask for PNEE.  ``prep`` is needed
+    with ``settings.edge_aware_nee`` (the warp's occluders).
 
     Returns ``(carry', shadow_req)``: the updated ``(o, d, throughput,
     color, alive, hdb, absorb)`` and the pending NEE query (``None``
@@ -216,11 +246,19 @@ def _shade_core(scene: SceneData, settings: RenderSettings, light_tab,
         light_sid = lrow[:, 12].to(torch.int64)
         l0, l1, l2 = lv[:, 0:3], lv[:, 3:6], lv[:, 6:9]
         s1, s2, s3 = rnglib.uniform3(seed, ray_id, slot0 + _SLOT_LIGHT_POINT)
+        j_nee = None
+        if settings.edge_aware_nee:
+            # value-preserving warp of the light-sample uniforms: light
+            # geometry gradients gain the shadow-boundary flux
+            from wasm_pathtracer_tpu_torch.ops import edges
+            s1, s2, j_nee = edges.nee_warp(
+                prep, scene, lv, light_sid, hit_point, s1, s2,
+                n_aux=settings.edge_nee_aux, radius=settings.edge_nee_radius)
         p_l, n_l = isx.triangle_pick_random(l0, l1, l2, s1, s2, s3)
 
         to_l = p_l - hit_point
         dis_sq = torch.clamp(vm.length_sq(to_l), min=1e-12)
-        to_l = to_l / torch.sqrt(dis_sq)[..., None]
+        to_l = to_l / vm.sqrt(dis_sq)[..., None]
         cos_i_l = vm.dot(to_l, n)
         cos_o_l = vm.dot(-to_l, n_l)
         front = (cos_i_l > 0.0) & (cos_o_l > 0.0)
@@ -233,6 +271,10 @@ def _shade_core(scene: SceneData, settings: RenderSettings, light_tab,
             area = isx.triangle_area(l0, l1, l2)
             solid_angle = area * cos_o_l / dis_sq
             w = solid_angle * cos_i_l / light_chance
+            if j_nee is not None:
+                w = w * j_nee   # the warp's Jacobian (value 1)
+            # zero w on masked lanes before the product, so that the
+            # backward pass never meets 0 * a non-finite value
             w = torch.where(nee_mask, w, 0.0)
             shadow_req = dict(
                 need=nee_mask,
@@ -244,8 +286,8 @@ def _shade_core(scene: SceneData, settings: RenderSettings, light_tab,
 
     # --- Russian roulette --------------------------------------------------
     u_rr = rnglib.uniform3(seed, ray_id, slot0 + _SLOT_RR)[0]
-    keep = torch.clamp(torch.amax(new_tp, dim=-1),
-                       settings.rr_clamp_min, settings.rr_clamp_max)
+    keep = _clip(torch.amax(new_tp, dim=-1), settings.rr_clamp_min,
+                 settings.rr_clamp_max)
     survive = u_rr < keep
     new_tp = new_tp / keep[..., None]
 
@@ -274,19 +316,25 @@ def _bounce_step(prep: tr.ScenePrep, scene: SceneData,
                  slot0, ray_id, seed, packed_rows=None, photon_grid=None):
     """One lockstep bounce: scene trace, :func:`_shade_core`, and the NEE
     shadow ray resolved inline.  Returns the updated carry plus this
-    step's per-lane primitive-test count (masked by ``alive``)."""
+    step's per-lane primitive-test count (masked by ``alive``).
+
+    On an autograd path ``trace.trace_scene`` re-evaluates the winners'
+    distances; the occlusion verdict is discrete and taken on detached
+    rays."""
     t, sid, hit, c = tr.trace_scene(prep, scene, o, d)
     step_cost = torch.where(alive, c, 0)
     carry, shadow_req = _shade_core(
         scene, settings, light_tab, o, d, throughput, color, alive, hdb,
         absorb, slot0, ray_id, seed, t, sid, hit, packed_rows=packed_rows,
-        photon_grid=photon_grid)
+        photon_grid=photon_grid, prep=prep)
     if shadow_req is not None:
         o2, d2, tp2, color2, alive2, hdb2, absorb2 = carry
-        occluded, sc = tr.shadow_ray(prep, scene, shadow_req["p_from"],
-                                     shadow_req["p_to"],
-                                     shadow_req["light_sid"],
-                                     settings.epsilon)
+        with torch.no_grad():
+            occluded, sc = tr.shadow_ray(prep, scene,
+                                         shadow_req["p_from"].detach(),
+                                         shadow_req["p_to"].detach(),
+                                         shadow_req["light_sid"],
+                                         settings.epsilon)
         step_cost = step_cost + torch.where(shadow_req["need"], sc, 0)
         color2 = _apply_shadow(color2, shadow_req, occluded)
         carry = (o2, d2, tp2, color2, alive2, hdb2, absorb2)
@@ -298,6 +346,15 @@ def trace_paths(prep: tr.ScenePrep, scene: SceneData,
     """Trace a batch of paths to radiance, all lanes in lockstep; the
     batch stops once every path has terminated.
 
+    The loop breaks on the host, so it has no fixed trip count; that is
+    reverse-differentiable in PyTorch as it is (the JAX package needs
+    its scan form, ``early_exit=False``, for gradients), and the bounces
+    a dead batch skips add nothing.  With
+    ``settings.checkpoint_bounces`` on an autograd path each bounce runs
+    under ``torch.utils.checkpoint``: the backward pass recomputes it,
+    its kernels included, from the carry; the pcg3d streams are keyed by
+    slot, so the recomputation draws the same numbers.
+
     Args:
       o, d: (R, 3) primary ray origins/directions.
       ray_id: (R,) integer unique path ids (pixel id is fine).
@@ -306,7 +363,6 @@ def trace_paths(prep: tr.ScenePrep, scene: SceneData,
 
     Returns (color (R, 3), cost (R,) int64 primitive tests).
     """
-    _check_supported(settings)
     R = o.shape[0]
     dev = o.device
     light_tab = _light_table(scene)
@@ -317,13 +373,25 @@ def trace_paths(prep: tr.ScenePrep, scene: SceneData,
     hdb = torch.zeros((R,), dtype=torch.bool, device=dev)
     absorb = torch.zeros((R, 3), dtype=torch.float32, device=dev)
     cost = torch.zeros((R,), dtype=torch.int64, device=dev)
+
+    def bounce(b, *carry):
+        return _bounce_step(prep, scene, settings, light_tab, *carry,
+                            b * _SLOTS_PER_BOUNCE, ray_id, seed,
+                            packed_rows=packed_rows, photon_grid=photon_grid)
+
+    remat = settings.checkpoint_bounces and torch.is_grad_enabled() and (
+        o.requires_grad or d.requires_grad or packed_rows.requires_grad)
     for b in range(settings.max_bounces):
         if not bool(alive.any()):
             break
-        (o, d, tp, color, alive, hdb, absorb), step_cost = _bounce_step(
-            prep, scene, settings, light_tab, o, d, tp, color, alive, hdb,
-            absorb, b * _SLOTS_PER_BOUNCE, ray_id, seed,
-            packed_rows=packed_rows, photon_grid=photon_grid)
+        carry = (o, d, tp, color, alive, hdb, absorb)
+        if remat:
+            carry, step_cost = torch.utils.checkpoint.checkpoint(
+                bounce, b, *carry, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            carry, step_cost = bounce(b, *carry)
+        o, d, tp, color, alive, hdb, absorb = carry
         cost = cost + step_cost
     return color, cost
 

@@ -51,7 +51,7 @@ def rays_vs_spheres(o, d, center, radius):
     b = 2.0 * torch.sum(oc * d[:, None, :], dim=-1)
     c = torch.sum(oc * oc, dim=-1) - (radius * radius)[None, :]
     disc = b * b - 4.0 * c                             # a == 1 (unit dir)
-    sq = torch.sqrt(torch.where(disc > 0.0, disc, 1.0))
+    sq = vm.sqrt(torch.where(disc > 0.0, disc, 1.0))
     sq = torch.where(disc > 0.0, sq, 0.0)
     t0 = (-b + sq) * 0.5
     t1 = (-b - sq) * 0.5
@@ -107,6 +107,59 @@ def rays_vs_squares(o, d, center, size):
 
 
 # ---------------------------------------------------------------------------
+# One shape per ray: the distance along each ray to its own shape, (R, 3)
+# rays against (R, 9) shape rows.  The same operations as the (R, P)
+# tests above, so a ray's value is theirs bit for bit; the masks that
+# turn a miss into +inf are left out, since the caller knows the ray
+# hits.  These are what gradients flow through once the kernels have
+# chosen each ray's shape.
+# ---------------------------------------------------------------------------
+
+def plane_t(o, d, rows):
+    n = rows[:, 3:6]
+    n_dot_d = torch.sum(d * n, dim=-1)
+    return (torch.sum(n * rows[:, 0:3], dim=-1) - torch.sum(o * n, dim=-1)) \
+        / _nonzero(n_dot_d)
+
+
+def sphere_t(o, d, rows):
+    oc = o - rows[:, 0:3]
+    b = 2.0 * torch.sum(oc * d, dim=-1)
+    c = torch.sum(oc * oc, dim=-1) - rows[:, 3] * rows[:, 3]
+    disc = b * b - 4.0 * c
+    sq = vm.sqrt(torch.where(disc > 0.0, disc, 1.0))
+    sq = torch.where(disc > 0.0, sq, 0.0)
+    t0 = (-b + sq) * 0.5
+    t1 = (-b - sq) * 0.5
+    t_near = torch.minimum(t0, t1)
+    return torch.where(t_near > 0.0, t_near, torch.maximum(t0, t1))
+
+
+def triangle_t(o, d, rows):
+    v0 = rows[:, 0:3]
+    n = vm.cross(rows[:, 3:6] - v0, rows[:, 6:9] - v0)
+    n_dot_d = torch.sum(d * n, dim=-1)
+    return (torch.sum(n * v0, dim=-1) - torch.sum(o * n, dim=-1)) / _nonzero(n_dot_d)
+
+
+def torus_t(o, d, rows):
+    return tori_march(o - rows[:, 0:3], d, rows[:, 3], rows[:, 4])
+
+
+def aarect_t(o, d, rows):
+    inv_d = 1.0 / _nonzero(d)
+    t1 = (rows[:, 0:3] - o) * inv_d
+    t2 = (rows[:, 3:6] - o) * inv_d
+    tmin = torch.amax(torch.minimum(t1, t2), dim=-1)
+    tmax = torch.amin(torch.maximum(t1, t2), dim=-1)
+    return torch.where(tmin > 0.0, tmin, tmax)
+
+
+def square_t(o, d, rows):
+    return (rows[:, 1] - o[:, 1]) / _nonzero(d[:, 1])
+
+
+# ---------------------------------------------------------------------------
 # Tori: over-relaxed sphere tracing of the exact torus SDF inside its
 # AABB, then Newton polish.  The constants are the JAX package's.
 # ---------------------------------------------------------------------------
@@ -119,8 +172,8 @@ _TORUS_TOL = 1e-4
 
 def _torus_sdf(p, big_r, small_r):
     """Signed distance to a flat-lying torus centred at the origin."""
-    qx = torch.sqrt(torch.clamp(p[..., 0] ** 2 + p[..., 2] ** 2, min=1e-24)) - big_r
-    return torch.sqrt(torch.clamp(qx * qx + p[..., 1] ** 2, min=1e-24)) - small_r
+    qx = vm.sqrt(torch.clamp(p[..., 0] ** 2 + p[..., 2] ** 2, min=1e-24)) - big_r
+    return vm.sqrt(torch.clamp(qx * qx + p[..., 1] ** 2, min=1e-24)) - small_r
 
 
 def rays_vs_tori(o, d, center, big_r, small_r):
@@ -135,9 +188,63 @@ def tori_march(lo, ld, R_, r_):
     origins, ``ld`` broadcastable unit directions, ``R_``/``r_``
     broadcastable radii.  Returns (...) distances, inf on miss.
 
-    Forward only; the implicit-function-theorem gradient of the JAX
-    version arrives with the port's gradient slice.
+    Differentiable by the implicit function theorem, as the JAX
+    version's ``custom_vjp``: the hit distance solves
+    ``f(t; theta) = sdf(lo + ld * t, R_, r_) = 0``, so at the root
+    ``dt/dtheta = -(df/dtheta) / (df/dt)``.  The backward takes one SDF
+    VJP at the saved ``t`` and keeps nothing of the march.
     """
+    return _ToriMarch.apply(lo, ld, R_, r_)
+
+
+def _torus_dsdf(lo, ld, t, R_, r_):
+    """Directional derivative of the torus SDF along ``ld`` at ``t``."""
+    p = lo + ld * t[..., None]
+    rho = vm.sqrt(torch.clamp(p[..., 0] ** 2 + p[..., 2] ** 2, min=1e-24))
+    qx = rho - R_
+    ql = vm.sqrt(torch.clamp(qx * qx + p[..., 1] ** 2, min=1e-24))
+    drho = (p[..., 0] * ld[..., 0] + p[..., 2] * ld[..., 2]) / rho
+    return (qx * drho + p[..., 1] * ld[..., 1]) / ql
+
+
+def _clamp_away(x, eps=1e-6):
+    """|x| clamped up to ``eps``, keeping the sign (0 goes to +eps)."""
+    return torch.where(torch.abs(x) < eps, torch.where(x < 0, -eps, eps), x)
+
+
+class _ToriMarch(torch.autograd.Function):
+    """:func:`tori_march` with the implicit-function-theorem backward.
+
+    The backward is differentiable once only, as the JAX version's
+    ``custom_vjp`` admits no forward-mode derivative: a second
+    derivative through a torus hit (the screen warp's Jacobian over a
+    torus) raises."""
+
+    @staticmethod
+    def forward(ctx, lo, ld, R_, r_):
+        t = _tori_march_impl(lo, ld, R_, r_)
+        ctx.save_for_backward(t, lo, ld, R_, r_)
+        return t
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, ct):
+        t, lo, ld, R_, r_ = ctx.saved_tensors
+        fin = torch.isfinite(t)
+        ts = torch.where(fin, t, 1.0)
+        # misses carry zero cotangent (the inf branch is constant)
+        ct = torch.where(fin, ct, 0.0)
+        ft = _clamp_away(_torus_dsdf(lo, ld, ts, R_, r_))
+        need = ctx.needs_input_grad[:4]
+        args = [x.detach().requires_grad_(n) for x, n in zip((lo, ld, R_, r_), need)]
+        with torch.enable_grad():
+            f = _torus_sdf(args[0] + args[1] * ts[..., None], args[2], args[3])
+            grads = iter(torch.autograd.grad(f, [a for a in args if a.requires_grad],
+                                             grad_outputs=-ct / ft))
+        return tuple(next(grads) if n else None for n in need)
+
+
+def _tori_march_impl(lo, ld, R_, r_):
     ext = torch.stack([R_ + r_, r_, R_ + r_], dim=-1) * torch.ones_like(lo)
     inv_d = 1.0 / _nonzero(ld)
     t1 = (-ext - lo) * inv_d
@@ -148,14 +255,6 @@ def tori_march(lo, ld, R_, r_):
 
     def sdf(t):
         return _torus_sdf(lo + ld * t[..., None], R_, r_)
-
-    def dsdf(t):
-        p = lo + ld * t[..., None]
-        rho = torch.sqrt(torch.clamp(p[..., 0] ** 2 + p[..., 2] ** 2, min=1e-24))
-        qx = rho - R_
-        ql = torch.sqrt(torch.clamp(qx * qx + p[..., 1] ** 2, min=1e-24))
-        drho = (p[..., 0] * ld[..., 0] + p[..., 2] * ld[..., 2]) / rho
-        return (qx * drho + p[..., 1] * ld[..., 1]) / ql
 
     t_lo = torch.clamp(t_in, min=1e-4)
     t = t_lo
@@ -177,9 +276,7 @@ def tori_march(lo, ld, R_, r_):
 
     for _ in range(_TORUS_NEWTON):
         f = sign0 * sdf(t)
-        fp = sign0 * dsdf(t)
-        fp = torch.where(torch.abs(fp) < 1e-6,
-                         torch.where(fp < 0, -1e-6, 1e-6), fp)
+        fp = _clamp_away(sign0 * _torus_dsdf(lo, ld, t, R_, r_))
         tn = torch.minimum(torch.maximum(t - f / fp, t_lo), t_out)
         t = torch.where(torch.abs(f) > 1e-6, tn, t)
 
@@ -259,7 +356,7 @@ def square_normal(d):
 def torus_normal(o, d, t, center, big_r, small_r):
     """Alpha formula; flipped when the ray starts inside."""
     p = o + d * t[..., None] - center
-    alpha = 1.0 - big_r / torch.sqrt(
+    alpha = 1.0 - big_r / vm.sqrt(
         torch.clamp(p[..., 0] ** 2 + p[..., 2] ** 2, min=1e-24))
     n = vm.normalize(torch.stack(
         [alpha * p[..., 0], p[..., 1], alpha * p[..., 2]], dim=-1))
@@ -280,7 +377,7 @@ def triangle_area(v0, v1, v2):
 def triangle_pick_random(v0, v1, v2, r1, r2, r3):
     """Uniform point on a triangle via the sqrt warp, with a random-sign
     normal.  Returns (point, normal)."""
-    r1s = torch.sqrt(r1)[..., None]
+    r1s = vm.sqrt(r1)[..., None]
     p = (1.0 - r1s) * v0 + (r1s * (1.0 - r2[..., None])) * v1 \
         + (r2[..., None] * r1s) * v2
     n = vm.normalize(vm.cross(v1 - v0, v2 - v0))

@@ -101,7 +101,7 @@ def _uniform_hemisphere(n, u1, u2):
     """Uniform direction on the hemisphere around ``n``."""
     z = 2.0 * u1 - 1.0
     phi = 2.0 * math.pi * u2
-    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    r = vm.sqrt(torch.clamp(1.0 - z * z, min=0.0))
     v = torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
     flip = vm.dot(v, n) < 0.0
     return torch.where(flip[..., None], -v, v)

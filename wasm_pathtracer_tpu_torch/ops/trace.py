@@ -87,6 +87,15 @@ def prepare(scene: SceneData, use_pallas: bool = False) -> ScenePrep:
                                      for t in PrimType], use_pallas=use_pallas)
 
 
+def _kernel_sets(sets, withdraw_triangles: bool) -> list:
+    """The scene kernels' six index sets: without the triangles when the
+    dense sweep or the BVH traces them."""
+    ksets = list(sets)
+    if withdraw_triangles:
+        ksets[int(PrimType.TRIANGLE)] = sets[0][:0]
+    return ksets
+
+
 def prepare_from_sets(scene: SceneData, index_sets, cluster=None,
                       use_pallas: bool = False, bvh: dict | None = None) -> ScenePrep:
     """A prep whose dense families are the six given shape-id sets (in
@@ -97,11 +106,7 @@ def prepare_from_sets(scene: SceneData, index_sets, cluster=None,
     dev = scene.device
     sets = [torch.as_tensor(s if isinstance(s, torch.Tensor) else np.asarray(s),
                             dtype=torch.int64, device=dev) for s in index_sets]
-    # the scene kernels' families: without the triangles when the sweep
-    # or the BVH traces them
-    ksets = list(sets)
-    if use_pallas or bvh is not None:
-        ksets[int(PrimType.TRIANGLE)] = sets[0][:0]
+    ksets = _kernel_sets(sets, use_pallas or bvh is not None)
     sizes = [int(s.shape[0]) for s in ksets]
     offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
 
@@ -151,7 +156,21 @@ def trace_scene(prep: ScenePrep, scene: SceneData, o, d):
     families; then the triangles by the dense sweep (``use_pallas``) or
     by the BVH walk pruned by the best hit so far, folded in with a
     strict ``<``; then the clusters.
+
+    On an autograd path (grad mode on, and the rays or ``scene.params``
+    requiring grad) this discrete trace runs without autograd on
+    detached rays, so the kernels see only plain tensors, and
+    :func:`winner_t` re-evaluates the winners' distances.
     """
+    if not _needs_grad(scene, o, d):
+        return _trace_discrete(prep, scene, o, d)
+    with torch.no_grad():
+        t, sid, hit, cost = _trace_discrete(prep, scene, o.detach(), d.detach())
+    return winner_t(prep, scene, o, d, t, sid), sid, hit, cost
+
+
+def _trace_discrete(prep: ScenePrep, scene: SceneData, o, d):
+    """:func:`trace_scene` without the re-evaluation."""
     t, sid, hit, cost = scene_kernels.trace_scene_fused(prep, scene, o, d)
     n_tri = prep.idx_triangle.shape[0]
     if n_tri and (prep.use_pallas or prep.has_bvh):
@@ -179,6 +198,69 @@ def trace_scene(prep: ScenePrep, scene: SceneData, o, d):
     sid = torch.where(better, sid_cl, sid)
     hit = torch.isfinite(t_cl)
     return t_cl, sid, hit, cost + rounds * prep.cluster.group
+
+
+# ---------------------------------------------------------------------------
+# The differentiable route: discrete choices from the kernels, the
+# winner's distance re-evaluated under autograd
+# ---------------------------------------------------------------------------
+
+# the per-ray distance formula of each family, in PrimType order
+_WINNER_T = (isx.plane_t, isx.sphere_t, isx.triangle_t, isx.torus_t,
+             isx.aarect_t, isx.square_t)
+
+
+def _needs_grad(scene: SceneData, *xs) -> bool:
+    """Whether a trace of rays ``xs`` through ``scene`` is on an
+    autograd path: grad mode is on and the rays or the shape table
+    require grad."""
+    return torch.is_grad_enabled() and (
+        scene.params.requires_grad or any(x.requires_grad for x in xs))
+
+
+def winner_t(prep: ScenePrep, scene: SceneData, o, d, t, sid):
+    """Each ray's hit distance re-evaluated from its winning shape's row
+    with the family's own formula (``ops.intersect.*_t``), under
+    autograd.
+
+    ``t``, ``sid`` are a discrete trace's (:func:`trace_scene` on
+    detached rays).  Shapes the scene kernels trace get a distance that
+    is differentiable in ``o``, ``d`` and ``scene.params`` and equals
+    ``t`` where the discrete trace ran the plain versions.  The rest
+    keep the detached ``t``: misses (+inf), cluster hits (detached in
+    the JAX package too) and the triangles of a dense-sweep or BVH prep
+    (the train step refuses those for geometry).  A re-evaluation that
+    comes out non-finite where the kernel hit also keeps ``t``.
+    Families are evaluated on their own rays only, so no masked lane
+    can send a non-finite value into the backward pass.
+    """
+    sid_c = torch.clamp(sid, min=0)
+    dense = (sid >= 0) & (prep.code_of[sid_c] >= 0)
+    ptype = scene.ptype[sid_c]
+    out = t
+    for fam, formula in enumerate(_WINNER_T):
+        if not prep.tables.counts[fam]:
+            continue
+        idx = torch.nonzero(dense & (ptype == fam)).squeeze(1)
+        if idx.numel():
+            out = out.index_put((idx,), formula(o[idx], d[idx],
+                                                scene.params[sid_c[idx]]))
+    return torch.where(torch.isfinite(out), out, t)
+
+
+def refresh_tables(prep: ScenePrep, scene: SceneData) -> ScenePrep:
+    """``prep`` with the scene kernels' family tables (and the dense
+    sweep's rows) gathered anew from ``scene``'s current, detached shape
+    table.  The tables are a copy taken at :func:`prepare`; after a step
+    moves geometry (a light), the kernels would trace the old one."""
+    params = scene.params.detach()
+    sets = _kernel_sets([getattr(prep, a) for a in INDEX_FIELDS],
+                        prep.use_pallas or prep.has_bvh)
+    tri_rows = None
+    if prep.use_pallas:
+        tri_rows = params[prep.idx_triangle][:, :9].contiguous()
+    return dataclasses.replace(prep, tables=scene_kernels.build_tables(sets, params),
+                               tri_rows=tri_rows)
 
 
 def shadow_ray(prep: ScenePrep, scene: SceneData, p, point_on_light,
