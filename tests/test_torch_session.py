@@ -191,14 +191,19 @@ def test_cli_uploads_obj_into_bunny_slot(tmp_path):
 
 
 def test_port_never_loads_jax(tmp_path):
-    """Importing the port and rendering a frame through it, in a fresh
-    interpreter, leaves JAX unloaded."""
+    """Importing the port (its runtime modules too) and rendering a path
+    traced and a Whitted frame through it, in a fresh interpreter, leaves
+    JAX unloaded."""
     code = (
         "import sys\n"
         "from wasm_pathtracer_tpu_torch.runtime import cli\n"
+        "from wasm_pathtracer_tpu_torch.ops import whitted\n"
+        "from wasm_pathtracer_tpu_torch.runtime import checkpoint, driver, live\n"
         f"cli.main(['--scene', '0', '--width', '128', '--height', '128', "
         f"'--ticks', '512', '--batch', '256', '--max-bounces', '3', "
         f"'--device', 'cpu', '--out', r'{tmp_path / 'm.png'}'])\n"
+        f"cli.main(['--scene', '101', '--width', '128', '--height', '128', "
+        f"'--whitted', '1', '--device', 'cpu', '--out', r'{tmp_path / 'w.png'}'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('wasm_pathtracer_tpu.') or m == 'wasm_pathtracer_tpu')\n"
         "assert not bad, bad\n"

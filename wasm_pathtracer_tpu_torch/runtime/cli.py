@@ -1,16 +1,22 @@
 """Command-line renderer (``wasm_pathtracer_tpu.runtime.cli``).
 
-Renders a fixed number of paths through a :class:`Session` and writes a
-PNG; ``--bench`` prints a JSON throughput line.  Each half takes its own
-estimator (0 = no NEE, 1 = NEE, 2 = photon-guided NEE) and may sample
-adaptively; ``--show-sampling`` writes the sampling-density view,
-``--light-debug`` the light-selection render, and ``--debug-view`` one
-depth or trace-cost frame of primary rays.  The device defaults to CUDA,
-and asking for it without a card is an error.
+Renders through a :class:`Session` for ``--seconds`` of wall time (in
+steps auto-tuned by the :class:`Driver`) or for exactly ``--ticks``
+paths, and writes a PNG; ``--bench`` prints a JSON throughput line.
+Each half takes its own estimator (0 = no NEE, 1 = NEE, 2 = photon-guided
+NEE) and may sample adaptively; ``--show-sampling`` writes the
+sampling-density view, ``--light-debug`` the light-selection render,
+``--debug-view`` one depth or trace-cost frame of primary rays, and
+``--whitted DEPTH`` one deterministic Whitted frame.  ``--checkpoint``
+saves the render state at the end and ``--resume`` restores it first
+(the JAX package's file format).  The device defaults to CUDA, and
+asking for it without a card is an error.
 
 Usage:
   python -m wasm_pathtracer_tpu_torch.runtime.cli --scene 0 \
       --width 512 --height 512 --ticks 262144 --out frame.png
+  python -m wasm_pathtracer_tpu_torch.runtime.cli --scene 101 --whitted 4 \
+      --out whitted.png
 """
 
 from __future__ import annotations
@@ -45,11 +51,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="paths per session step (default 32768)")
     p.add_argument("--lanes", type=int, default=None,
                    help="persistent-wavefront lane count")
-    p.add_argument("--ticks", type=int, default=65536,
-                   help="paths to trace, split between the halves")
+    p.add_argument("--seconds", type=float, default=5.0,
+                   help="wall-clock budget of the render")
+    p.add_argument("--ticks", type=int, default=None,
+                   help="exact path budget, split between the halves "
+                        "(overrides --seconds)")
+    p.add_argument("--whitted", type=int, default=None, metavar="DEPTH",
+                   help="render one deterministic Whitted frame at this "
+                        "recursion depth instead of path tracing")
     p.add_argument("--obj", type=str, default=None,
                    help="OBJ mesh to upload as mesh id 1 (the bunny slot)")
     p.add_argument("--out", type=str, default=None, help="output PNG path")
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="save the render state here at the end (.npz)")
+    p.add_argument("--resume", type=str, default=None,
+                   help="restore the render state from this file first")
     p.add_argument("--bench", action="store_true",
                    help="print a JSON throughput report")
     p.add_argument("--camera", type=float, nargs=5, default=None,
@@ -67,6 +83,8 @@ def main(argv=None):
 
     from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
     from wasm_pathtracer_tpu_torch.models.camera import Camera
+    from wasm_pathtracer_tpu_torch.runtime import checkpoint
+    from wasm_pathtracer_tpu_torch.runtime.driver import Driver
     from wasm_pathtracer_tpu_torch.runtime.session import Session
     from wasm_pathtracer_tpu_torch.utils.png import write_png
 
@@ -95,6 +113,9 @@ def main(argv=None):
         # the client's preparation of its bunny: scale x8, flip z
         sess.store_mesh(1, load_obj(args.obj, scale=8.0, flip_z=True))
 
+    if args.resume:
+        checkpoint.load(args.resume, sess)
+
     if args.debug_view is not None:
         from wasm_pathtracer_tpu_torch.models.camera import primary_rays
         from wasm_pathtracer_tpu_torch.ops import accum, integrator
@@ -115,6 +136,19 @@ def main(argv=None):
             print(f"wrote {args.out}")
         return
 
+    if args.whitted is not None:
+        from wasm_pathtracer_tpu_torch.ops import whitted
+        from wasm_pathtracer_tpu_torch.utils.png import tonemap_u8
+        pix = torch.arange(width * height, device=sess.device)
+        with torch.no_grad():
+            img = whitted.render_whitted(sess.prep, sess.scene, sess.left.settings,
+                                         sess.camera, pix % width, pix // width,
+                                         width, height, depth=args.whitted)
+        if args.out:
+            write_png(args.out, tonemap_u8(img.reshape(height, width, 3).cpu().numpy()))
+            print(f"wrote {args.out}")
+        return
+
     def sync():
         if sess.device.type == "cuda":
             torch.cuda.synchronize(sess.device)
@@ -123,9 +157,17 @@ def main(argv=None):
         # build the kernels and warm the allocator before timing
         sess.compute(2)
         sync()
-        sess.reset()
+        if args.resume:
+            checkpoint.load(args.resume, sess)
+        else:
+            sess.reset()
     t0 = time.perf_counter()
-    traced = sess.compute(args.ticks)
+    if args.ticks is not None:
+        traced = sess.compute(args.ticks)
+    else:
+        drv = Driver(sess)
+        drv.run(seconds=args.seconds)
+        traced = drv.total_ticks
     sync()
     dt = time.perf_counter() - t0
 
@@ -145,6 +187,10 @@ def main(argv=None):
     if args.out:
         write_png(args.out, sess.results(show_sampling=args.show_sampling))
         print(f"wrote {args.out}")
+
+    if args.checkpoint:
+        checkpoint.save(args.checkpoint, sess)
+        print(f"checkpointed to {args.checkpoint}")
 
 
 if __name__ == "__main__":

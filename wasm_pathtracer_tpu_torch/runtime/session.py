@@ -133,6 +133,13 @@ class RenderInstance:
             self.num_bvh_hits += int(torch.stack(costs).sum())
         return traced
 
+    def round_samples(self) -> float:
+        """Mean samples per pixel so far in this region."""
+        s = self.session
+        c = s.buffer.count[self.y0:self.y0 + self.height,
+                           self.x0:self.x0 + self.width]
+        return float(c.mean())
+
     def reset(self):
         """Start the render over; the photons are kept."""
         self.num_bvh_hits = 0
@@ -272,6 +279,12 @@ class Session:
         if self.scene_id == mesh_id + 1:
             self.update_scene(self.scene_id)
             return True
+        return False
+
+    def store_texture(self, tex_id: int, rgb) -> bool:
+        """Upload a texture; it takes effect at the next
+        :meth:`update_scene` (returns False: nothing was rebuilt)."""
+        self.textures[tex_id] = np.asarray(rgb, np.float32)
         return False
 
     @property
