@@ -188,6 +188,22 @@ its last line):
    101, ``--whitted 1`` on scene 4 (cluster prep), ``--seconds 2
    --checkpoint`` then ``--resume --ticks 65536``: PNGs not black, the
    resumed counts the checkpoint's plus 65,536.
+30. The sharded paths (``shard``, last) on a world-1 NCCL group opened by
+   ``distributed.initialize`` over a TCP store on 127.0.0.1 (one card;
+   NCCL takes one rank a card), destroyed at the end: the museum headline
+   through ``render_queue_sharded`` and mesh70k flat through
+   ``render_queue_flat_sharded`` at full width against their unsharded
+   loops on the same queue and seed, unsharded, sharded, sharded,
+   unsharded, each with its launches counted (K1/K2, K3/K4 once per
+   iteration): counts equal, sums within rtol 1e-5 (``index_add_``'s
+   float atomics), then one pair with deterministic algorithms bit for
+   bit; ``render_image_sharded`` of the museum at 512x512 bit-equal to
+   ``render_pixels``; a museum train step with the group and without
+   (loss within rtol 1e-5, albedo within 1e-4 of its move); the
+   inverse-render demo (sphere_plane 64x64, albedo +0.15, 6 steps: the
+   loss at a fixed seed falls by more than 10%); ``measure_scaling`` over
+   1, 2, 4, 8 devices (one row on one card); the all-reduce of a 512x512
+   frame's sums and counts, by CUDA events.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 call that was timed: the larger of its bytes (each input and output
@@ -212,7 +228,8 @@ path's own rays for K1 and K2, at cloud300k for the others) and a JSON
 status line.  The whole script took 110-152 s on an NVIDIA H100 80GB
 HBM3 at 700 W from a clean checkout before phases 22-25, the builds
 included (42-57 s of it are the four CLI processes); phases 22-25 add
-about 45 s, phases 26-29 about 60 s (33 s of it the four CLI processes).
+about 45 s, phases 26-29 about 60 s (33 s of it the four CLI processes),
+phase 30 56-70 s; the whole script 282 s of command time.
 """
 
 from __future__ import annotations
@@ -986,6 +1003,18 @@ def busy_share(fn, kernels):
     return total / 1e6 / wall, n_kernels
 
 
+def counted_run(fn):
+    """(fn(), seconds, launches) with the counts set to 0 just before and
+    read just after."""
+    import torch
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_counts()
+
+
 def run_queue(what, queue_fn, prep, scene, st, cam, h, device, **kw):
     """Warm up, then drive ``queue_fn`` over ``h['S']`` random pixels of
     an ``h['width']`` x ``h['height']`` frame with the counts set to 0
@@ -996,14 +1025,9 @@ def run_queue(what, queue_fn, prep, scene, st, cam, h, device, **kw):
     queue_fn(prep, scene, st, cam, headline_queue(device, 2 * h["B"]),
              h["width"], h["height"], 1, h["B"], **kw)
     pix = headline_queue(device, h["S"])
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    acc, cnt, cost, iters = queue_fn(prep, scene, st, cam, pix, h["width"], h["height"],
-                                     2, h["B"], return_iters=True, **kw)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = read_counts()
+    (acc, cnt, cost, iters), dt, launches = counted_run(lambda: queue_fn(
+        prep, scene, st, cam, pix, h["width"], h["height"], 2, h["B"], return_iters=True,
+        **kw))
     total = int(cnt.sum())
     tests = int(cost.sum()) / h["S"]
     log(f"{what}: {h['width']}x{h['height']} {st.render_type.name} {st.max_bounces} "
@@ -2047,7 +2071,7 @@ def phase_train(device, record):
     from wasm_pathtracer_tpu_torch.ops import bvh, integrator, trace
     from wasm_pathtracer_tpu_torch.ops import probe_kernels as pk
     from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
-    from wasm_pathtracer_tpu_torch.parallel import make_train_step
+    from wasm_pathtracer_tpu_torch.parallel import make_ray_mesh, make_train_step
     g = GRAD
     w, h = g["width"], g["height"]
     st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=g["max_bounces"])
@@ -2093,7 +2117,8 @@ def phase_train(device, record):
         target = integrator.render_pixels(prep, scene, st, cam, pix % w, pix // w, w, h,
                                           1)[0].reshape(h, w, 3)
     start = scene.with_materials(albedo=torch.clamp(scene.albedo * 0.8, 0.0, 1.0))
-    step = make_train_step(prep, st, w, h, lr=1e-3)
+    lone = make_ray_mesh(device=device)
+    step = make_train_step(lone, prep, st, w, h, lr=1e-3)
     rec["museum"] = run(
         "museum albedo+camera", step, start, cam, target, 3,
         dict(albedo=lambda s, c: s.albedo, rot_x=lambda s, c: c.rot_x),
@@ -2103,7 +2128,7 @@ def phase_train(device, record):
     mprep = bvh.attach_clusters(trace.prepare(mesh), mesh, exclude_lights=True)
     if mprep.cluster is None or mprep.cluster.has_baked_lights:
         raise AssertionError("mesh70k: the lights must stay out of the cluster tables")
-    step = make_train_step(mprep, st, w, h, lr=0.05, train_lights=True,
+    step = make_train_step(lone, mprep, st, w, h, lr=0.05, train_lights=True,
                            train_materials=False, train_camera=False)
     lid = mesh.light_shape.long()
     given, _, rec["mesh70k_lights"], got = run(
@@ -2645,6 +2670,230 @@ def phase_cli_runtime(device, record):
         raise AssertionError("CLI: the resumed render did not continue from the checkpoint")
 
 
+# device counts of the scaling harness: one card gives the first row
+SHARD_SCALING = (1, 2, 4, 8)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_against_unsharded(what, unsharded_fn, sharded_fn, mesh, prep, scene, st, cam,
+                              h, device, kernels):
+    """The sharded queue against the unsharded loop on one queue of
+    ``h['S']`` paths with the same seed: unsharded, sharded, sharded,
+    unsharded, each with its launches counted (each kernel of ``kernels``
+    once per iteration).  Counts equal and every sample counted; frame sums
+    within rtol 1e-5 (the loops add finished paths with ``index_add_``,
+    whose float atomics sum a pixel's paths in any order), then bit for
+    bit in one pair more with deterministic algorithms.  Returns the
+    record."""
+    import torch
+    import torch.distributed as dist
+    W, H, B = h["width"], h["height"], h["B"]
+    unsharded_fn(prep, scene, st, cam, headline_queue(device, 2 * B), W, H, 1, B)
+    sharded_fn(mesh, prep, scene, st, cam, headline_queue(device, 2 * B), W, H, 1, B)
+    pix = headline_queue(device, h["S"])
+
+    def unsharded():
+        return unsharded_fn(prep, scene, st, cam, pix, W, H, 2, B, return_iters=True)
+
+    def sharded():
+        return sharded_fn(mesh, prep, scene, st, cam, pix, W, H, 2, B)
+
+    runs = [(name,) + counted_run(fn) for name, fn in (
+        ("unsharded", unsharded), ("sharded", sharded), ("sharded", sharded),
+        ("unsharded", unsharded))]
+    iters = runs[0][1][3]
+    ref_acc, ref_cnt = runs[0][1][0], runs[0][1][1]
+    rec = dict(iterations=iters, runs=[])
+    for name, out, dt, launches in runs:
+        expect_launches(launches, iters, kernels)
+        acc, cnt = out[0], out[1]
+        total = int(cnt.sum())
+        diff = float((acc - ref_acc).abs().max())
+        log(f"shard {what} {name}: {dt:.3f} s, {h['S'] / dt:.1f} paths/s, samples {total}, "
+            f"max |acc - first unsharded| {diff:.3g}, launches {launches}; {card_line()}")
+        if total != h["S"] or not torch.equal(cnt, ref_cnt):
+            raise AssertionError(f"shard {what} {name}: counts differ from the unsharded loop")
+        if not bool(torch.isfinite(acc).all()) or not torch.allclose(acc, ref_acc, rtol=1e-5,
+                                                                     atol=1e-6):
+            raise AssertionError(f"shard {what} {name}: frame sums differ (max {diff})")
+        rec["runs"].append(dict(path=name, seconds=dt, paths_per_sec=h["S"] / dt,
+                                launches=launches))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        a, b = unsharded(), sharded()
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rec["bit_equal"] = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    rec["cost"] = [int(a[2].sum()), float(b[2])]
+    log(f"shard {what}: with deterministic algorithms the sharded frame sums and counts "
+        f"equal the unsharded loop's bit for bit: {rec['bit_equal']}; primitive tests "
+        f"{rec['cost'][0]} unsharded, {rec['cost'][1]:.0f} sharded (summed in float32); "
+        f"group backend {dist.get_backend(mesh.group)}")
+    if not rec["bit_equal"]:
+        raise AssertionError(f"shard {what}: not bit-equal to the unsharded loop")
+    return rec
+
+
+def phase_shard(device, record):
+    """The sharded paths on a world-1 NCCL group (``distributed.initialize``
+    over a TCP store on 127.0.0.1): the museum headline and mesh70k flat
+    at full width against their unsharded loops, the museum frame against
+    ``render_pixels``, the train step with and without the group, the
+    inverse-render demo, the scaling harness and the all-reduce's cost.
+    The group is destroyed at the end."""
+    import torch
+    import torch.distributed as dist
+    from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+    from wasm_pathtracer_tpu_torch.models import scenes
+    from wasm_pathtracer_tpu_torch.models.camera import Camera, initial_camera
+    from wasm_pathtracer_tpu_torch.models.scene import MatKind
+    from wasm_pathtracer_tpu_torch.ops import integrator, trace, wavefront
+    from wasm_pathtracer_tpu_torch.parallel import (make_ray_mesh, make_train_step,
+                                                    render_image_sharded,
+                                                    render_queue_flat_sharded,
+                                                    render_queue_sharded)
+    from wasm_pathtracer_tpu_torch.parallel.distributed import initialize, measure_scaling
+    from wasm_pathtracer_tpu_torch.parallel.shard import RayMesh
+
+    world = initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        mesh = make_ray_mesh()
+        backend = str(dist.get_backend(mesh.group))
+        log(f"shard: world {world}, mesh rank {mesh.rank} of {mesh.size} on {mesh.device}, "
+            f"backend {backend}")
+        if (world, mesh.rank, mesh.size, backend) != (1, 0, 1, "nccl") \
+                or mesh.device != device:
+            raise AssertionError("shard: the mesh is not a world-1 NCCL group on the card")
+        rec = dict(backend=backend, world=world)
+
+        h = HEADLINE
+        scene = scenes.museum(device)
+        st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=h["max_bounces"])
+        prep, cam = trace.prepare(scene), initial_camera(0, device)
+        rec["museum"] = sharded_against_unsharded(
+            "museum headline", integrator.render_queue, render_queue_sharded, mesh, prep,
+            scene, st, cam, h, device, ("fused_nearest", "fused_occluded"))
+        mscene, mprep = mesh70k(device)
+        rec["mesh70k_flat"] = sharded_against_unsharded(
+            "mesh70k flat", wavefront.render_queue_flat, render_queue_flat_sharded, mesh,
+            mprep, mscene, st, mesh_camera(device), MESH, device,
+            ("select_scan", "probe_pair"))
+
+        # the frame: render_image_sharded against render_pixels
+        W, H = h["width"], h["height"]
+        pix = torch.arange(W * H, device=device)
+        with torch.no_grad():
+            want, dt0, l0 = counted_run(lambda: integrator.render_pixels(
+                prep, scene, st, cam, pix % W, pix // W, W, H, 7)[0].reshape(H, W, 3))
+            img, dt1, l1 = counted_run(lambda: render_image_sharded(
+                mesh, prep, scene, st, cam, W, H, 7))
+        log(f"shard image: museum {W}x{H}, render_pixels {dt0:.3f} s, render_image_sharded "
+            f"{dt1:.3f} s, bit-equal {torch.equal(img, want)}, launches {l1} ({l0})")
+        if not torch.equal(img, want) or l0 != l1:
+            raise AssertionError("shard: the sharded frame differs from render_pixels")
+        expect_launches(l1, 0, at_least_once=("fused_nearest", "fused_occluded"))
+        rec["image"] = dict(seconds=dt1, seconds_unsharded=dt0, launches=l1)
+
+        # the train step with and without the group
+        lone = RayMesh(None, 0, 1, device)
+        with torch.no_grad():
+            target = integrator.render_pixels(prep, scene, st, cam, pix % W, pix // W, W, H,
+                                              1)[0].reshape(H, W, 3)
+        start = scene.with_materials(albedo=torch.clamp(scene.albedo * 0.8, 0.0, 1.0))
+        steps = {"group": make_train_step(mesh, prep, st, W, H, lr=1e-3),
+                 "no group": make_train_step(lone, prep, st, W, H, lr=1e-3)}
+        steps["no group"](start, cam, target, 100)     # the first backward warms up
+        runs = [(name,) + counted_run(lambda: steps[name](start, cam, target, 100))
+                for name in ("group", "no group", "no group", "group")]
+        (lg, sg, cg), _, launches = runs[0][1:]
+        expect_launches(launches, 0, at_least_once=("fused_nearest", "fused_occluded"))
+        moved = float((sg.albedo - start.albedo).abs().max())
+        diffs, bit_equal = {}, True
+        for name, (ln, sn, cn), _, _ in runs[1:]:
+            d = dict(loss=abs(float(lg) - float(ln)),
+                     albedo=float((sg.albedo - sn.albedo).abs().max()),
+                     emission=float((sg.emission - sn.emission).abs().max()),
+                     rot_x=float((cg.rot_x - cn.rot_x).abs().max()))
+            diffs = {k: max(v, diffs.get(k, 0.0)) for k, v in d.items()}
+            bit_equal &= (torch.equal(lg, ln) and torch.equal(sg.albedo, sn.albedo)
+                          and torch.equal(sg.emission, sn.emission)
+                          and torch.equal(cg.location, cn.location)
+                          and torch.equal(cg.rot_x, cn.rot_x))
+        seconds = {name: [r[2] for r in runs if r[0] == name] for name in steps}
+        log(f"shard train: museum {W}x{H}, loss {float(lg):.8g}; s a step {seconds} "
+            f"(group, no group, no group, group); albedo moved by {moved:.3g}; largest "
+            f"|group - other run| {diffs}; all bit-equal {bit_equal}; launches {launches}")
+        if not (moved > 0 and diffs["loss"] <= 1e-5 * abs(float(lg))
+                and diffs["albedo"] <= 1e-4 * moved):
+            raise AssertionError("shard train: the step differs with the group")
+        rec["train"] = dict(loss=float(lg), seconds=seconds, diffs=diffs,
+                            bit_equal=bit_equal, launches=launches)
+
+        # the inverse-render demo (tests/test_sharding.py's train case) at 64x64
+        sp = scenes.sphere_plane(device)
+        sprep = trace.prepare(sp)
+        scam = Camera.create((0.0, 1.5, -2.0), 0.25, 0.0, device=device)
+        sst = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=4)
+        w = 64
+        with torch.no_grad():
+            target = render_image_sharded(mesh, sprep, sp, sst, scam, w, w, 100, spp=4)
+        wrong = sp.with_materials(albedo=torch.clamp(sp.albedo + 0.15, 0.0, 1.0))
+        step = make_train_step(mesh, sprep, sst, w, w, lr=0.5)
+        diffuse = (sp.mat_kind == int(MatKind.DIFFUSE))[:, None]
+
+        def albedo_err(s):
+            return float(torch.where(diffuse, (s.albedo - sp.albedo).abs(), 0.0).max())
+
+        # the loss at one fixed seed before and after: a step's own loss
+        # moves with its seed's noise more than with the albedo
+        before = float(step(wrong, scam, target, 999)[0])
+        cur, cc, losses = wrong, scam, []
+        t0 = time.perf_counter()
+        for i in range(6):
+            loss, cur, cc = step(cur, cc, target, 200 + i)
+            losses.append(float(loss))
+        dt = (time.perf_counter() - t0) / 6
+        after = float(step(cur, cc, target, 999)[0])
+        log(f"shard inverse render: {w}x{w}, albedo +0.15, 6 steps of {dt:.3f} s: step "
+            f"losses {losses}; loss at seed 999 {before:.6g} -> {after:.6g}; max diffuse "
+            f"albedo error {albedo_err(wrong):.4f} -> {albedo_err(cur):.4f}")
+        if not (np.isfinite(losses).all() and after < 0.9 * before
+                and albedo_err(cur) < albedo_err(wrong)):
+            raise AssertionError("shard inverse render: the loss did not fall")
+        rec["inverse_render"] = dict(losses=losses, before=before, after=after,
+                                     seconds_per_step=dt)
+
+        # the scaling harness: one card, one row
+        def render(m, seed):
+            with torch.no_grad():
+                return render_image_sharded(m, prep, scene, st, cam, W, H, seed)
+
+        rows = measure_scaling(render, SHARD_SCALING, iters=5)
+        log(f"shard scaling (museum {W}x{H} frames): {rows}; {card_line()}")
+        if [r["devices"] for r in rows] != [1] or rows[0]["efficiency"] != 1.0:
+            raise AssertionError("shard: measure_scaling on one card gives one row")
+        rec["scaling"] = rows
+
+        # the all-reduce of a frame's sums and counts
+        acc = torch.rand((W * H, 3), device=device)
+        cnt = torch.randint(0, 8, (W * H,), dtype=torch.int32, device=device)
+        rec["all_reduce_ms"] = {
+            "float32 (262144, 3)": cuda_ms(lambda: mesh.all_reduce(acc), 50, graph=False),
+            "int32 (262144,)": cuda_ms(lambda: mesh.all_reduce(cnt), 50, graph=False)}
+        log(f"shard: NCCL all_reduce ms (world 1, CUDA events, 50 calls) "
+            f"{rec['all_reduce_ms']}; {card_line()}")
+        record["shard"] = rec
+    finally:
+        dist.destroy_process_group()
+
+
 PHASES = {
     "k1": phase_kernel_k1,
     "k2": phase_kernel_k2,
@@ -2671,6 +2920,7 @@ PHASES = {
     "whitted_gpu_vs_cpu": phase_whitted_gpu_vs_cpu,
     "live": phase_live,
     "cli_runtime": phase_cli_runtime,
+    "shard": phase_shard,
 }
 
 
@@ -2722,7 +2972,8 @@ def main(argv) -> int:
     log(json.dumps({k: record[k] for k in ("main_path", "mesh_path", "sweep_path",
                                            "pnee_path", "adaptive_1080p", "grad_path",
                                            "grad_gpu_vs_cpu", "train", "edges", "whitted",
-                                           "whitted_gpu_vs_cpu", "live", "cli_runtime")}))
+                                           "whitted_gpu_vs_cpu", "live", "cli_runtime",
+                                           "shard")}))
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

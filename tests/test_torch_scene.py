@@ -8,9 +8,11 @@ import torch
 import jax.numpy as jnp
 
 from wasm_pathtracer_tpu.models import camera as jcamera
+from wasm_pathtracer_tpu.models import scene as jscene
 from wasm_pathtracer_tpu.models import scenes as jscenes
 from wasm_pathtracer_tpu_torch.models import camera as tcamera
 from wasm_pathtracer_tpu_torch.models import scenes as tscenes
+from wasm_pathtracer_tpu_torch.models import scene as tscene
 from wasm_pathtracer_tpu_torch.models.scene import TENSOR_FIELDS, scene_from_numpy
 
 SCENE_IDS = [0, 2, 3, 4, 100, 101]
@@ -41,6 +43,32 @@ def test_scene_from_numpy_round_trips(scene_id):
         np.testing.assert_array_equal(a, getattr(t, k).numpy(), err_msg=k)
     back = t.to("cpu")
     assert back.num_shapes == j.num_shapes
+
+
+@pytest.mark.parametrize("ptype", [1, 2, 3, 4, 5])
+def test_prim_aabb_matches_jax(ptype):
+    """Random rows of every finite family (positive radii and sizes)."""
+    rows = np.random.default_rng(ptype).uniform(0.05, 3.0, (64, 9)).astype(np.float32)
+    rows[::2, :3] *= -1.0
+    for p in rows:
+        want = jscene.prim_aabb(ptype, p)
+        got = tscene.prim_aabb(ptype, p)
+        for a, b in zip(want, got):
+            assert b.dtype == np.float32 and b.shape == (3,)
+            np.testing.assert_array_equal(b, a)
+
+
+def test_prim_aabb_refuses_a_plane():
+    with pytest.raises(ValueError, match="no AABB for ptype 0"):
+        tscene.prim_aabb(0, np.zeros(9, np.float32))
+
+
+@pytest.mark.parametrize("scene_id", [0, 100, 101])
+def test_finite_aabb_matches_jax(scene_id):
+    want = jscene.finite_aabb(jscenes.select_scene(scene_id))
+    got = tscene.finite_aabb(tscenes.select_scene(scene_id))
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b, a)
 
 
 def test_museum_shape():

@@ -191,14 +191,15 @@ def test_cli_uploads_obj_into_bunny_slot(tmp_path):
 
 
 def test_port_never_loads_jax(tmp_path):
-    """Importing the port (its runtime modules too) and rendering a path
-    traced and a Whitted frame through it, in a fresh interpreter, leaves
-    JAX unloaded."""
+    """Importing the port (its runtime and parallel modules too) and
+    rendering a path traced and a Whitted frame through it, in a fresh
+    interpreter, leaves JAX unloaded."""
     code = (
         "import sys\n"
         "from wasm_pathtracer_tpu_torch.runtime import cli\n"
         "from wasm_pathtracer_tpu_torch.ops import whitted\n"
         "from wasm_pathtracer_tpu_torch.runtime import checkpoint, driver, live\n"
+        "from wasm_pathtracer_tpu_torch.parallel import distributed, shard\n"
         f"cli.main(['--scene', '0', '--width', '128', '--height', '128', "
         f"'--ticks', '512', '--batch', '256', '--max-bounces', '3', "
         f"'--device', 'cpu', '--out', r'{tmp_path / 'm.png'}'])\n"

@@ -36,9 +36,12 @@ from wasm_pathtracer_tpu_torch.ops import bvh as tbvh
 from wasm_pathtracer_tpu_torch.ops import integrator as tintegrator
 from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
 from wasm_pathtracer_tpu_torch.ops import trace as ttrace
+from wasm_pathtracer_tpu_torch.parallel import make_ray_mesh as tmake_ray_mesh
 from wasm_pathtracer_tpu_torch.parallel import make_train_step
 
 W = H = 16
+# the one-member mesh: one process on the CPU
+CPU = tmake_ray_mesh(device="cpu")
 CAMERA = ((0.0, 1.0, -6.0), 0.1, 0.0)
 
 
@@ -84,7 +87,7 @@ def _steps(case, n_steps):
     jstep = jmake_train_step(make_ray_mesh(jax.devices()[:1]), jtrace.prepare(j), js,
                              W, H, optimizer=jopt, **kw)
     t = _to_torch(j)
-    tstep = make_train_step(ttrace.prepare(t), ts, W, H, optimizer=topt, **kw)
+    tstep = make_train_step(CPU, ttrace.prepare(t), ts, W, H, optimizer=topt, **kw)
     target = _target()
     jcam, tcam = JCamera.create(*CAMERA), Camera.create(*CAMERA)
     jsc, tsc = j, t
@@ -155,22 +158,22 @@ def test_train_step_guards():
     scene = _mesh_scene(8)
     dense = ttrace.prepare(scene)
     with pytest.raises(ValueError, match=r"requires a dense or cluster ScenePrep \(no attached BVH\)"):
-        make_train_step(tbvh.attach_bvh(dense, scene), st, W, H, train_lights=True,
+        make_train_step(CPU, tbvh.attach_bvh(dense, scene), st, W, H, train_lights=True,
                         train_camera=False)
     baked = tbvh.attach_clusters(dense, scene, min_count=64)
     assert baked.cluster.has_baked_lights
     with pytest.raises(ValueError, match="exclude_lights=True"):
-        make_train_step(baked, st, W, H, train_lights=True, train_materials=False,
+        make_train_step(CPU, baked, st, W, H, train_lights=True, train_materials=False,
                         train_camera=False)
     with pytest.raises(ValueError, match="cluster traversal while_loop is not"):
-        make_train_step(baked, st, W, H)
+        make_train_step(CPU, baked, st, W, H)
     with pytest.raises(ValueError, match="no use_pallas dense sweep"):
-        make_train_step(ttrace.prepare(scene, use_pallas=True), st, W, H)
+        make_train_step(CPU, ttrace.prepare(scene, use_pallas=True), st, W, H)
     with pytest.raises(ValueError, match="edge_aware_screen=True requires the dense"):
-        make_train_step(ttrace.prepare(scene, use_pallas=True), st, W, H,
+        make_train_step(CPU, ttrace.prepare(scene, use_pallas=True), st, W, H,
                         train_camera=False, edge_aware_screen=True)
     # materials alone need no geometry gradient: a sweep prep is fine
-    make_train_step(ttrace.prepare(scene, use_pallas=True), st, W, H, train_camera=False)
+    make_train_step(CPU, ttrace.prepare(scene, use_pallas=True), st, W, H, train_camera=False)
 
 
 def test_train_lights_cluster_prep_guard_and_step():
@@ -181,7 +184,7 @@ def test_train_lights_cluster_prep_guard_and_step():
     prep = tbvh.attach_clusters(ttrace.prepare(scene), scene, min_count=64,
                                 exclude_lights=True)
     assert prep.cluster is not None and not prep.cluster.has_baked_lights
-    step = make_train_step(prep, st, W, H, lr=0.01, train_lights=True,
+    step = make_train_step(CPU, prep, st, W, H, lr=0.01, train_lights=True,
                            train_materials=False, train_camera=False)
     target = torch.zeros((H, W, 3)) + 0.2
     loss, scene2, _ = step(scene, Camera.create(*CAMERA), target, 5)
@@ -208,7 +211,7 @@ def test_tables_follow_a_light_step(monkeypatch):
     scene = _mesh_scene(6)
     st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=2)
     prep = ttrace.prepare(scene)
-    step = make_train_step(prep, st, W, H, lr=50.0, train_lights=True,
+    step = make_train_step(CPU, prep, st, W, H, lr=50.0, train_lights=True,
                            train_materials=False, train_camera=False)
     target = torch.zeros((H, W, 3)) + 5.0
     _, moved, cam = step(scene, Camera.create(*CAMERA), target, 3)

@@ -6,9 +6,11 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+from wasm_pathtracer_tpu import config as jconfig
 from wasm_pathtracer_tpu.runtime import session as jsession
 from wasm_pathtracer_tpu.utils import rng as jrng
 from wasm_pathtracer_tpu.utils import vecmath as jvm
+from wasm_pathtracer_tpu_torch import config as tconfig
 from wasm_pathtracer_tpu_torch.runtime import session as tsession
 from wasm_pathtracer_tpu_torch.utils import rng as trng
 from wasm_pathtracer_tpu_torch.utils import vecmath as tvm
@@ -41,6 +43,23 @@ def test_uniform3_broadcasts_scalars():
     out = trng.uniform3(0xBABABEBE, torch.arange(1000), 0x7FFF0000)
     for a, b in zip(ref, out):
         np.testing.assert_array_equal(a, b.numpy())
+
+
+def test_uniform1_uniform2_bit_exact():
+    r = np.random.default_rng(5)
+    s, i, k = _u32(r, 2048), _u32(r, 2048), _u32(r, 2048)
+    args = [torch.from_numpy(v.astype(np.int64)) for v in (s, i, k)]
+    np.testing.assert_array_equal(trng.uniform1(*args).numpy(),
+                                  jrng.uniform1(s, i, k, xp=np))
+    ref, out = jrng.uniform2(s, i, k, xp=np), trng.uniform2(*args)
+    assert len(out) == 2
+    for a, b in zip(ref, out):
+        np.testing.assert_array_equal(a, b.numpy())
+
+
+def test_debug_view_members_equal():
+    assert [(m.name, int(m)) for m in tconfig.DebugView] == \
+        [(m.name, int(m)) for m in jconfig.DebugView]
 
 
 @pytest.mark.parametrize("seed,round_", [(0xBABABEBE, 0), (0xBABABEBE, 17),

@@ -28,6 +28,16 @@ class RenderType(enum.IntEnum):
     PNEE = 2        # photon-guided NEE (grid CDF light selection)
 
 
+class DebugView(enum.IntEnum):
+    """False-colour debug outputs (values match the JAX package's)."""
+
+    NONE = 0
+    SAMPLING_DENSITY = 1
+    PHOTON_LIGHTS = 2
+    DEPTH = 3
+    BVH_COST = 4
+
+
 @dataclasses.dataclass(frozen=True)
 class RenderSettings:
     """Static configuration for a render instance."""

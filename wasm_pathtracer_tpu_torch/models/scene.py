@@ -156,36 +156,57 @@ def scene_from_numpy(arrays: dict, num_inf: int, num_shapes: int,
                      num_lights=int(num_lights), num_plights=int(num_plights))
 
 
+def _finite_boxes(ptype: np.ndarray, p: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(lo, hi), (n, 3) float32 each: the AABBs of the finite shape rows
+    ``p`` (n, 9) of types ``ptype`` (n,), host side.  Triangles are
+    padded by 0.1 * EPSILON (``ops.cluster.prim_aabbs`` pads every
+    family, as the JAX cluster build does)."""
+    ptype = np.asarray(ptype)
+    p = np.asarray(p, np.float32)
+    lo = np.empty((len(ptype), 3), np.float32)
+    hi = np.empty((len(ptype), 3), np.float32)
+    known = np.zeros(len(ptype), bool)
+
+    def put(kind, bmin, bmax):
+        m = ptype == int(kind)
+        if m.any():
+            lo[m], hi[m] = bmin(p[m]), bmax(p[m])
+        known[m] = True
+
+    put(PrimType.SPHERE, lambda q: q[:, :3] - q[:, 3:4], lambda q: q[:, :3] + q[:, 3:4])
+    pad = np.float32(0.1 * 2e-4)
+    put(PrimType.TRIANGLE, lambda q: q[:, :9].reshape(-1, 3, 3).min(1) - pad,
+        lambda q: q[:, :9].reshape(-1, 3, 3).max(1) + pad)
+
+    def torus_ext(q):
+        r = q[:, 3] + q[:, 4]
+        return np.stack([r, q[:, 4], r], axis=-1)
+
+    put(PrimType.TORUS, lambda q: q[:, :3] - torus_ext(q), lambda q: q[:, :3] + torus_ext(q))
+    put(PrimType.AARECT, lambda q: q[:, 0:3], lambda q: q[:, 3:6])
+
+    def half(q):
+        return np.stack([q[:, 3] / 2, np.zeros_like(q[:, 3]), q[:, 3] / 2], axis=-1)
+
+    put(PrimType.SQUARE, lambda q: q[:, :3] - half(q), lambda q: q[:, :3] + half(q))
+    if not known.all():
+        raise ValueError(f"no AABB for ptype {int(ptype[~known][0])}")
+    return lo, hi
+
+
+def prim_aabb(ptype: int, p: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The AABB (lo (3,), hi (3,)) of one primitive row (host side)."""
+    lo, hi = _finite_boxes(np.array([int(ptype)]), np.asarray(p)[None])
+    return lo[0], hi[0]
+
+
 def finite_aabb(scene: SceneData) -> tuple[np.ndarray, np.ndarray]:
     """World AABB over the finite shapes (host side; the photon grid's
-    extent).  Triangles are padded by 0.1 * EPSILON; a scene without
-    finite shapes reads the unit box."""
-    p = scene.params.cpu().numpy()[scene.num_inf:scene.num_shapes]
-    pt = scene.ptype.cpu().numpy()[scene.num_inf:scene.num_shapes]
-    lo = np.full(3, np.inf, np.float32)
-    hi = np.full(3, -np.inf, np.float32)
-
-    def fold(m, bmin, bmax):
-        nonlocal lo, hi
-        if m.any():
-            lo = np.minimum(lo, bmin.min(0))
-            hi = np.maximum(hi, bmax.max(0))
-
-    m = pt == int(PrimType.SPHERE)
-    fold(m, p[m, :3] - p[m, 3:4], p[m, :3] + p[m, 3:4])
-    m = pt == int(PrimType.TRIANGLE)
-    v = p[m, :9].reshape(-1, 3, 3)
-    pad = np.float32(0.1 * 2e-4)
-    fold(m, v.min(1) - pad, v.max(1) + pad)
-    m = pt == int(PrimType.TORUS)
-    r = p[m, 3] + p[m, 4]
-    ext = np.stack([r, p[m, 4], r], axis=-1)
-    fold(m, p[m, :3] - ext, p[m, :3] + ext)
-    m = pt == int(PrimType.AARECT)
-    fold(m, p[m, 0:3], p[m, 3:6])
-    m = pt == int(PrimType.SQUARE)
-    half = np.stack([p[m, 3] / 2, np.zeros_like(p[m, 3]), p[m, 3] / 2], axis=-1)
-    fold(m, p[m, :3] - half, p[m, :3] + half)
+    extent); a scene without finite shapes reads the unit box."""
+    n0, n1 = scene.num_inf, scene.num_shapes
+    lo, hi = _finite_boxes(scene.ptype.cpu().numpy()[n0:n1],
+                           scene.params.cpu().numpy()[n0:n1])
+    lo, hi = lo.min(0, initial=np.inf), hi.max(0, initial=-np.inf)
     if not np.all(np.isfinite(lo)):
         return np.full(3, -1.0, np.float32), np.full(3, 1.0, np.float32)
     return lo, hi

@@ -1,7 +1,10 @@
-"""Training over the scene's differentiable leaves (``wasm_pathtracer_tpu.parallel``).
+"""Pixel-partition rendering and training over a ``torch.distributed``
+group (``wasm_pathtracer_tpu.parallel``)."""
 
-One process on one device for now; the pixel-partitioned rendering and
-the gradient all-reduce over a ``torch.distributed`` group come with the
-sharding slice."""
-
-from wasm_pathtracer_tpu_torch.parallel.shard import make_train_step  # noqa: F401
+from wasm_pathtracer_tpu_torch.parallel.shard import (  # noqa: F401
+    make_ray_mesh,
+    render_image_sharded,
+    render_queue_sharded,
+    render_queue_flat_sharded,
+    make_train_step,
+)

@@ -72,6 +72,15 @@ def uniform3(seed, ray_id, slot):
     return _to_unit(x), _to_unit(y), _to_unit(z)
 
 
+def uniform1(seed, ray_id, slot):
+    return uniform3(seed, ray_id, slot)[0]
+
+
+def uniform2(seed, ray_id, slot):
+    u = uniform3(seed, ray_id, slot)
+    return u[0], u[1]
+
+
 class Xorshift32:
     """The reference's RNG, host-side only (museum colour shuffle)."""
 
