@@ -204,6 +204,22 @@ its last line):
    loss at a fixed seed falls by more than 10%); ``measure_scaling`` over
    1, 2, 4, 8 devices (one row on one card); the all-reduce of a 512x512
    frame's sums and counts, by CUDA events.
+31. The card as the default device (``defaults``): the museum through
+    ``scenes.museum()``, ``trace.prepare``, ``initial_camera(0)``,
+    ``adaptive.random_pixels`` and one ``render_queue`` batch of 16,384
+    paths with no device argument anywhere: every tensor on the card,
+    K1 and K2 launched.
+32. The session's per-pixel step (``no_regen``): 512x512 sessions with
+    ``use_regen=False`` (8 bounces) on the museum (K1, K2) and on scene 4's
+    cluster prep (K1, K5): two batches a half against the same session on
+    the CPU (counts exact, per-pixel sums by the per-path rule), then
+    paths/s beside a regenerating session's in turns, launches counted.
+33. The inverse-render example (``inverse_render``): ``python -m
+    wasm_pathtracer_tpu_torch.examples.inverse_render`` at its defaults
+    (40 steps, 48x48, the card) must exit 0; the albedo error before and
+    after and steps/s.  Phase 24 (``train``) also times the museum step
+    with every bounce (``early_exit=False``, what ``make_train_step``
+    builds) against the host's early exit, in turns, losses bit-equal.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 call that was timed: the larger of its bytes (each input and output
@@ -229,7 +245,9 @@ status line.  The whole script took 110-152 s on an NVIDIA H100 80GB
 HBM3 at 700 W from a clean checkout before phases 22-25, the builds
 included (42-57 s of it are the four CLI processes); phases 22-25 add
 about 45 s, phases 26-29 about 60 s (33 s of it the four CLI processes),
-phase 30 56-70 s; the whole script 282 s of command time.
+phase 30 56-70 s; the whole script 282 s of command time.  Phases 31-33
+add about 2.5 min (their first run: 1.5 s, 99.6 s of which 78 s were the
+two CPU sessions, before scene 4's CPU batch was halved, and 40.9 s).
 """
 
 from __future__ import annotations
@@ -2123,6 +2141,7 @@ def phase_train(device, record):
         "museum albedo+camera", step, start, cam, target, 3,
         dict(albedo=lambda s, c: s.albedo, rot_x=lambda s, c: c.rot_x),
         ("fused_nearest", "fused_occluded"))[2]
+    rec["museum_early_exit"] = train_early_exit_ab(step, start, cam, target)
 
     mesh = scenes.mesh_scene(scenes.surface_mesh(188), device)
     mprep = bvh.attach_clusters(trace.prepare(mesh), mesh, exclude_lights=True)
@@ -2166,6 +2185,33 @@ def phase_train(device, record):
     if on_light < 0.5:
         raise AssertionError("train: the step's tables miss the moved light")
     record["train"] = rec
+
+
+def train_early_exit_ab(step, scene, cam, target):
+    """The museum step as ``make_train_step`` builds it (every bounce
+    runs, ``early_exit=False``) against the same step with the host's
+    early exit after each bounce, in turns (False, True, True, False),
+    from the same leaves and seed: the losses must be bit-equal.
+    Returns seconds and launches by setting."""
+    import torch
+    if step.settings.early_exit:
+        raise AssertionError("make_train_step must run every bounce (early_exit=False)")
+    out = {False: [], True: []}
+    losses = {}
+    for early_exit in (False, True, True, False):
+        step.settings = step.settings.replace(early_exit=early_exit)
+        (loss, _, _), dt, launches = counted_run(lambda: step(scene, cam, target, 7))
+        losses.setdefault(early_exit, float(loss))
+        out[early_exit].append(dict(seconds=dt, launches=launches))
+    step.settings = step.settings.replace(early_exit=False)
+    log(f"train museum early_exit A/B (same leaves, seed 7): every bounce "
+        f"{[r['seconds'] for r in out[False]]} s, early exit "
+        f"{[r['seconds'] for r in out[True]]} s; launches {out[False][0]['launches']} vs "
+        f"{out[True][0]['launches']}; loss {losses[False]!r} vs {losses[True]!r}; "
+        f"{card_line()}")
+    if losses[False] != losses[True]:
+        raise AssertionError("train: early_exit changed the loss")
+    return {"every_bounce": out[False], "early_exit": out[True]}
 
 
 def phase_edges(device, record):
@@ -2893,6 +2939,236 @@ def phase_shard(device, record):
     finally:
         dist.destroy_process_group()
 
+def tensors_of(x):
+    """Every tensor ``x`` holds, through tuples, lists and dataclasses."""
+    import dataclasses
+    import torch
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        x = [getattr(x, f.name) for f in dataclasses.fields(x)]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in tensors_of(v)]
+    return []
+
+
+def phase_defaults(device, record):
+    """The JAX API written call for call, with no device anywhere: the
+    museum through ``scenes.museum()``, ``trace.prepare``,
+    ``initial_camera(0)``, ``adaptive.random_pixels`` and one
+    ``render_queue`` batch of 16,384 paths at 512x512 (NEE, 8 bounces,
+    16,384 lanes).  Every tensor lands on the card, and K1 and K2 (only
+    they) launch."""
+    import torch
+    from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+    from wasm_pathtracer_tpu_torch.models import scenes
+    from wasm_pathtracer_tpu_torch.models.camera import initial_camera
+    from wasm_pathtracer_tpu_torch.ops import adaptive, integrator, trace
+    h = HEADLINE
+    W, H, B = h["width"], h["height"], h["B"]
+    scene = scenes.museum()
+    prep = trace.prepare(scene)
+    cam = initial_camera(0)
+    st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=h["max_bounces"])
+    px, py = adaptive.random_pixels(B, 1, 0, 0, W, H)
+    pix = py * W + px
+    out, dt, launches = counted_run(
+        lambda: integrator.render_queue(prep, scene, st, cam, pix, W, H, 2, B))
+    held = tensors_of((scene, prep, cam, px, py, out))
+    where = sorted({str(t.device) for t in held})
+    acc, cnt, _ = out
+    log(f"defaults: museum {W}x{H}, one render_queue batch of {B} paths with no device "
+        f"argument: {len(held)} tensors on {where}, {dt:.3f} s, launches {launches}, "
+        f"samples {int(cnt.sum())}; {card_line()}")
+    if any(t.device.type != "cuda" for t in held):
+        raise AssertionError(f"defaults: tensors off the card ({where})")
+    expect_launches(launches, 0, at_least_once=("fused_nearest", "fused_occluded"))
+    if int(cnt.sum()) != B or not bool(torch.isfinite(acc).all()):
+        raise AssertionError("defaults: the batch lost samples or is not finite")
+    record["defaults"] = dict(tensors=len(held), devices=where, seconds=dt,
+                              launches=launches)
+
+
+# the per-pixel session phase: viewport, bounces, and the batches of
+# 32,768 paths in each timed run
+NO_REGEN = dict(width=512, height=512, max_bounces=8, batches=8)
+# the calls of the first timed per-pixel run whose inputs phase no_regen
+# checks, by scene: bounce 2 of the first batch (K1 and K2 once a bounce
+# on the museum, K1 twice on scene 4) and a round of its first cluster
+# trace (about 378 K5 rounds a batch)
+NO_REGEN_CALLS = {0: {"fused_nearest": 2, "fused_occluded": 2},
+                  4: {"fused_nearest": 2, "probe_min": 100}}
+# the K1 and K2 calls (of 1,680 each) of the example's run that phase
+# inverse_render checks: a bounce of about its 20th train step
+INVERSE_CALL = 840
+
+
+def session_run(sess, ticks):
+    """(paths traced, seconds, launches) of one ``sess.compute(ticks)``."""
+    return counted_run(lambda: sess.compute(ticks))
+
+
+def sessions_agree(gpu, cpu, what):
+    """Counts equal; >= 99% of the sampled pixels' sums within rtol 1e-3
+    / atol 2e-3 (the per-path rule)."""
+    c_g, c_c = gpu.buffer.count.cpu().numpy(), cpu.buffer.count.cpu().numpy()
+    a_g, a_c = gpu.buffer.acc.cpu().numpy(), cpu.buffer.acc.cpu().numpy()
+    sampled = c_c > 0
+    close = np.isclose(a_g, a_c, rtol=1e-3, atol=2e-3).all(-1)[sampled].mean()
+    same = np.array_equal(c_g, c_c)
+    log(f"{what}: counts equal {same} ({int(c_c.sum())} samples on {int(sampled.sum())} "
+        f"pixels), per-pixel agreement {close:.4f}, primitive tests {gpu.num_bvh_hits} vs "
+        f"{cpu.num_bvh_hits}")
+    if not (same and close >= 0.99):
+        raise AssertionError(f"{what}: the card's session and the CPU's disagree")
+    return dict(agreement=float(close), samples=int(c_c.sum()),
+                prim_tests=[gpu.num_bvh_hits, cpu.num_bvh_hits])
+
+
+def phase_no_regen(device, record):
+    """The session's per-pixel step (``use_regen=False``): each batch of
+    picked pixels renders one sample a pixel through
+    ``integrator.render_pixels`` and ``accum.write_samples``.  The museum
+    (NEE both halves, 8 bounces) at 512x512: two batches of 16,384 a
+    half on the card against the same session on the CPU; then, at the
+    default batch of 32,768, paths/s over ``NO_REGEN['batches']`` batches beside a
+    regenerating session's (``use_regen=True``, ``render_queue``), in
+    turns (per-pixel, regenerating, regenerating, per-pixel), launches
+    counted: K1 and K2 only on the museum; K1 and K5 (the lockstep
+    cluster trace) on scene 4, the 10k-triangle cloud on its cluster
+    prep, whose regenerating session takes the flat wavefront (K3, K4).
+    Scene 4's CPU comparison takes batches of 1,024 (the plain cluster
+    trace is slow on the CPU).  K1, K2 and K5 are held against their
+    plain versions on the arguments of calls ``NO_REGEN_CALLS`` of the
+    first timed per-pixel run, the batches of 32,768 whose launches and
+    paths/s are reported."""
+    import torch
+    from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+    from wasm_pathtracer_tpu_torch.ops import probe_kernels as pk
+    from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
+    from wasm_pathtracer_tpu_torch.runtime.session import Session
+    n = NO_REGEN
+    W, H = n["width"], n["height"]
+    rec = {}
+    for scene_id, per_pixel_kernels, regen_kernels, cpu_batch in (
+            (0, ("fused_nearest", "fused_occluded"), ("fused_nearest", "fused_occluded"),
+             16_384),
+            (4, ("fused_nearest", "probe_min"), ("select_scan", "probe_pair"), 1_024)):
+        what = f"no_regen scene {scene_id}"
+
+        def session(dev, use_regen, batch=32_768):
+            st = RenderSettings(render_type=RenderType.NORMAL_NEE,
+                                max_bounces=n["max_bounces"], use_regen=use_regen,
+                                ray_batch_size=batch)
+            return Session(W, H, scene_id=scene_id, left=st, right=st, device=dev)
+
+        gpu, cpu = session(device, False, cpu_batch), session("cpu", False, cpu_batch)
+        _, _, launches = session_run(gpu, 4 * cpu_batch)
+        t0 = time.perf_counter()
+        cpu.compute(4 * cpu_batch)
+        t_cpu = time.perf_counter() - t0
+        log(f"{what}: {W}x{H}, two batches of {cpu_batch} a half on the card (launches "
+            f"{launches}) and on the CPU ({t_cpu:.1f} s)")
+        expect_launches(launches, 0, at_least_once=per_pixel_kernels)
+        agree = sessions_agree(gpu, cpu, f"{what} GPU vs CPU")
+
+        sessions = {False: session(device, False), True: session(device, True)}
+        ticks = n["batches"] * 32_768
+        for sess in sessions.values():
+            sess.compute(2 * 32_768)              # warm-up: one batch a half
+        runs = {False: [], True: []}
+        for use_regen in (False, True, True, False):
+            with contextlib.ExitStack() as stack:
+                first = not use_regen and not runs[False]
+                parts = [stack.enter_context(recorded_calls(module, {
+                    k: c for k, c in NO_REGEN_CALLS[scene_id].items() if k in names}))
+                    for module, names in ((sk, ("fused_nearest", "fused_occluded")),
+                                          (pk, ("probe_min",))) if first]
+                traced, dt, launches = session_run(sessions[use_regen], ticks)
+            if first:
+                got = {k: v for part in parts for k, v in part.items()}
+                got_launches = launches
+            if traced != ticks:
+                raise AssertionError(f"{what}: traced {traced} of {ticks} paths")
+            expect_launches(launches, 0, at_least_once=(
+                regen_kernels if use_regen else per_pixel_kernels))
+            runs[use_regen].append(dict(paths_per_sec=ticks / dt, seconds=dt,
+                                        launches=launches))
+        for sess in sessions.values():
+            if not bool(torch.isfinite(sess.buffer.acc).all()):
+                raise AssertionError(f"{what}: non-finite radiance")
+        if set(got) != set(NO_REGEN_CALLS[scene_id]):
+            raise AssertionError(f"{what}: the per-pixel run made too few calls to record "
+                                 f"{NO_REGEN_CALLS[scene_id]} (recorded {sorted(got)})")
+        check_path_inputs(record, got, f"{what} per-pixel " + " ".join(
+            f"{k} call {c}" for k, c in NO_REGEN_CALLS[scene_id].items()), got_launches)
+        log(f"{what}: {ticks} paths a run, paths/s per-pixel "
+            f"{[r['paths_per_sec'] for r in runs[False]]}, regenerating "
+            f"{[r['paths_per_sec'] for r in runs[True]]}; launches a run "
+            f"{runs[False][0]['launches']} vs {runs[True][0]['launches']}; {card_line()}")
+        rec[f"scene_{scene_id}"] = dict(gpu_vs_cpu=agree, per_pixel=runs[False],
+                                        regenerating=runs[True])
+    record["no_regen"] = rec
+
+
+def phase_inverse_render(device, record):
+    """The port's inverse-render example (``python -m
+    wasm_pathtracer_tpu_torch.examples.inverse_render``) at its own
+    defaults (40 steps, 48x48, lr 0.8, no device argument: the card):
+    it must return 0, the largest diffuse albedo error below 0.8x its
+    start.  Its train steps are timed by wrapping
+    ``parallel.make_train_step``; its launches are counted, and K1 and K2
+    held against their plain versions on the arguments of their call
+    ``INVERSE_CALL`` in that run."""
+    import io
+    import torch
+    from wasm_pathtracer_tpu_torch import parallel
+    from wasm_pathtracer_tpu_torch.examples import inverse_render
+    from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
+    make = parallel.make_train_step
+    times = []
+
+    def timed_make(*args, **kw):
+        step = make(*args, **kw)
+
+        def timed(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    buf = io.StringIO()
+    parallel.make_train_step = timed_make
+    which = {"fused_nearest": INVERSE_CALL, "fused_occluded": INVERSE_CALL}
+    try:
+        with contextlib.redirect_stdout(buf), recorded_calls(sk, which) as got:
+            rc, dt, launches = counted_run(lambda: inverse_render.main([]))
+    finally:
+        parallel.make_train_step = make
+    for line in buf.getvalue().splitlines():
+        log(f"inverse_render | {line}")
+    errs = [line.split(":")[1].split("->") for line in buf.getvalue().splitlines()
+            if line.startswith("max albedo error:")]
+    before, after = (float(x) for x in errs[0]) if errs else (float("nan"),) * 2
+    log(f"inverse_render: exit {rc}, max diffuse albedo error {before} -> {after}, "
+        f"{len(times)} steps at {len(times) / sum(times) if times else 0:.3f} steps/s "
+        f"(median step {sorted(times)[len(times) // 2] if times else 0:.4f} s), "
+        f"{dt:.1f} s in all, launches {launches}; {card_line()}")
+    if rc != 0 or len(times) != 40:
+        raise AssertionError("inverse_render: the example did not succeed at its defaults")
+    expect_launches(launches, 0, at_least_once=("fused_nearest", "fused_occluded"))
+    if set(got) != set(which):
+        raise AssertionError(f"inverse_render: the run made fewer than {INVERSE_CALL + 1} "
+                             f"calls of K1 and K2 (recorded {sorted(got)})")
+    check_path_inputs(record, got, f"inverse_render call {INVERSE_CALL}", launches)
+    record["inverse_render"] = dict(exit=rc, albedo_err_before=before,
+                                    albedo_err_after=after, steps=len(times),
+                                    steps_per_sec=len(times) / sum(times),
+                                    step_seconds=times, seconds=dt, launches=launches)
+
 
 PHASES = {
     "k1": phase_kernel_k1,
@@ -2921,6 +3197,9 @@ PHASES = {
     "live": phase_live,
     "cli_runtime": phase_cli_runtime,
     "shard": phase_shard,
+    "defaults": phase_defaults,
+    "no_regen": phase_no_regen,
+    "inverse_render": phase_inverse_render,
 }
 
 
@@ -2973,7 +3252,8 @@ def main(argv) -> int:
                                            "pnee_path", "adaptive_1080p", "grad_path",
                                            "grad_gpu_vs_cpu", "train", "edges", "whitted",
                                            "whitted_gpu_vs_cpu", "live", "cli_runtime",
-                                           "shard")}))
+                                           "shard", "defaults", "no_regen",
+                                           "inverse_render")}))
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -147,7 +147,7 @@ def test_pick_pixels_floor_covers_region_and_excess_follows_error():
 
 def test_debug_traces_match_jax():
     """``trace_depth`` and ``trace_bvh_cost`` on the museum's primary rays."""
-    j, t = jscenes.museum(), tscenes.museum()
+    j, t = jscenes.museum(), tscenes.museum(device="cpu")
     W = H = 24
     pix = np.arange(W * H)
     half = np.full(W * H, 0.5, np.float32)
@@ -155,7 +155,7 @@ def test_debug_traces_match_jax():
     from wasm_pathtracer_tpu_torch.models.camera import initial_camera as tcam
     o0, d0 = jprimary_rays(jcam(0), jnp.asarray(pix % W), jnp.asarray(pix // W),
                            jnp.asarray(half), jnp.asarray(half), W, H)
-    o1, d1 = primary_rays(tcam(0), torch.from_numpy(pix % W), torch.from_numpy(pix // W),
+    o1, d1 = primary_rays(tcam(0, "cpu"), torch.from_numpy(pix % W), torch.from_numpy(pix // W),
                           torch.from_numpy(half), torch.from_numpy(half), W, H)
     t0, c0 = jint.trace_depth(jtrace.prepare(j), j, o0, d0)
     t1, c1 = tint.trace_depth(ttrace.prepare(t), t, o1, d1)

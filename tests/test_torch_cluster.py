@@ -35,7 +35,7 @@ from wasm_pathtracer_tpu_torch.ops import trace as ttrace
 def _to_torch(scene):
     return scene_from_numpy({k: np.asarray(getattr(scene, k)) for k in TENSOR_FIELDS},
                             scene.num_inf, scene.num_shapes, scene.num_lights,
-                            scene.num_plights)
+                            scene.num_plights, device="cpu")
 
 
 def _cloud(n=600, seed=3):
@@ -149,7 +149,7 @@ def test_cluster_from_numpy_round_trip_and_layout():
     j, t, pj, pt = _pair("mixed")
     cj = pj.cluster
     cs = tcl.cluster_from_numpy({k: np.asarray(getattr(cj, k)) for k in tcl.ARRAY_FIELDS},
-                                cj.families)
+                                cj.families, device="cpu")
     for k in tcl.ARRAY_FIELDS:
         assert torch.equal(getattr(cs, k), getattr(pt.cluster, k)), k
     C, G = cs.num_clusters, cs.group

@@ -41,14 +41,14 @@ CAMERA = ((0.0, 1.5, -2.0), 0.45, 0.0)
 def _to_torch(scene):
     return scene_from_numpy({k: np.asarray(getattr(scene, k)) for k in TENSOR_FIELDS},
                             scene.num_inf, scene.num_shapes, scene.num_lights,
-                            scene.num_plights)
+                            scene.num_plights, device="cpu")
 
 
 def _setup():
     scene = _to_torch(jscenes.sphere_plane())
     st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=4,
                         rr_clamp_min=0.9, rr_clamp_max=0.9)
-    return scene, ttrace.prepare(scene), Camera.create(*CAMERA), st
+    return scene, ttrace.prepare(scene), Camera.create(*CAMERA, device="cpu"), st
 
 
 def _pix(w=W, h=H):
@@ -253,7 +253,8 @@ def test_edgeaware_needs_a_dense_prep():
                                 exclude_lights=True)
     px, py = _pix(2, 2)
     with pytest.raises(AssertionError, match="dense differentiable"):
-        edges.render_pixels_edgeaware(prep, scene, RenderSettings(), Camera.create(*CAMERA),
+        edges.render_pixels_edgeaware(prep, scene, RenderSettings(),
+                                      Camera.create(*CAMERA, device="cpu"),
                                       px, py, 2, 2, 1)
 
 

@@ -346,7 +346,7 @@ def _pnee_grid():
     t = _to_torch(jscenes.sphere_plane())
     st = RenderSettings(render_type=RenderType.PNEE, max_bounces=4)
     lo, hi = tph.grid_bounds_for_scene(t, st)
-    tgrid = tph.PhotonGrid.create(t.num_lights, lo, hi, st.photon_grid_res)
+    tgrid = tph.PhotonGrid.create(t.num_lights, lo, hi, st.photon_grid_res, device="cpu")
     for k in range(4):
         tgrid = tph.emit_photons(tgrid, ttrace.prepare(t), t, st, 900 + k, 2048)
     grid = jph.PhotonGrid(bins=jnp.asarray(tgrid.bins.numpy()), lo=jnp.asarray(tgrid.lo.numpy()),
@@ -417,7 +417,7 @@ def _port_loss(j, st, camera, leaf, grid=None):
               "albedo": lambda: t.with_materials(albedo=x),
               "light_rows": lambda: t.with_light_rows(x)}[leaf]()
         p = prep if leaf != "light_rows" else ttrace.refresh_tables(prep, sc)
-        col, _ = tint.render_pixels(p, sc, st, Camera.create(*camera), pix % W,
+        col, _ = tint.render_pixels(p, sc, st, Camera.create(*camera, device="cpu"), pix % W,
                                     pix // W, W, H, seed, photon_grid=grid)
         return col.mean()
 

@@ -31,6 +31,8 @@ from wasm_pathtracer_tpu_torch.models.camera import Camera
 from wasm_pathtracer_tpu_torch.ops import integrator as tint
 from wasm_pathtracer_tpu_torch.ops import trace as ttrace
 
+from tests.torch_port_helpers import one_thread  # noqa: F401 (a fixture)
+
 CAMERAS = {
     "sphere_plane": ((0.0, 1.5, -2.0), 0.25, 0.0),
     "museum": ((0.0, 16.34, -23.76), 0.54, 0.0),
@@ -50,9 +52,9 @@ def _jax_queue(name, rt, pix, W, H, seed, lanes, max_bounces):
 
 
 def _torch_queue(name, rt, pix, W, H, seed, lanes, max_bounces):
-    scene = getattr(tscenes, name)()
+    scene = getattr(tscenes, name)(device="cpu")
     st = RenderSettings(render_type=RenderType(rt), max_bounces=max_bounces)
-    cam = Camera.create(*CAMERAS[name])
+    cam = Camera.create(*CAMERAS[name], device="cpu")
     acc, cnt, cost, its = tint.render_queue(
         ttrace.prepare(scene), scene, st, cam, torch.from_numpy(pix), W, H, seed,
         lanes, return_iters=True)
@@ -105,10 +107,10 @@ def test_render_queue_invariant_to_lane_count():
 def test_render_queue_bounce_cap_equals_lockstep():
     """max_bounces=1, pix = arange: path i is keyed like render_pixels'
     pixel i, so the queue equals the lockstep render per pixel."""
-    scene = tscenes.sphere_plane()
+    scene = tscenes.sphere_plane(device="cpu")
     prep = ttrace.prepare(scene)
     st = RenderSettings(render_type=RenderType.NO_NEE, max_bounces=1)
-    cam = Camera.create(*CAMERAS["sphere_plane"])
+    cam = Camera.create(*CAMERAS["sphere_plane"], device="cpu")
     W = H = 8
     pix = torch.arange(W * H)
     acc, cnt, _ = tint.render_queue(prep, scene, st, cam, pix, W, H, 3, 32)
@@ -127,18 +129,18 @@ def test_render_pixels_matches_jax():
                                 JCamera.create(*CAMERAS["sphere_plane"]),
                                 jnp.asarray(px), jnp.asarray(py), W, H,
                                 jnp.uint32(11))
-    t = tscenes.sphere_plane()
+    t = tscenes.sphere_plane(device="cpu")
     out, _ = tint.render_pixels(ttrace.prepare(t), t, RenderSettings(max_bounces=6),
-                                Camera.create(*CAMERAS["sphere_plane"]),
+                                Camera.create(*CAMERAS["sphere_plane"], device="cpu"),
                                 torch.from_numpy(px), torch.from_numpy(py), W, H, 11)
     close = np.isclose(out.numpy(), np.asarray(ref), rtol=1e-3, atol=2e-3).all(-1)
     assert close.mean() >= 0.99
 
 
 def test_render_queue_empty_and_zero_bounce():
-    scene = tscenes.sphere_plane()
+    scene = tscenes.sphere_plane(device="cpu")
     prep = ttrace.prepare(scene)
-    cam = Camera.create(*CAMERAS["sphere_plane"])
+    cam = Camera.create(*CAMERAS["sphere_plane"], device="cpu")
     W = H = 8
     st = RenderSettings(render_type=RenderType.NO_NEE, max_bounces=4)
     acc, cnt, cost, its = tint.render_queue(prep, scene, st, cam,
@@ -159,8 +161,8 @@ def test_unported_estimators_raise(kw):
     (``render_pixels`` takes it, ``tests/test_torch_edges.py``).  PNEE
     without a photon grid renders as plain NEE, in the port as in the
     JAX package."""
-    scene = tscenes.sphere_plane()
-    cam = Camera.create(*CAMERAS["sphere_plane"])
+    scene = tscenes.sphere_plane(device="cpu")
+    cam = Camera.create(*CAMERAS["sphere_plane"], device="cpu")
     if "edge_aware_nee" in kw:
         with pytest.raises(NotImplementedError):
             tint.render_queue(ttrace.prepare(scene), scene, RenderSettings(**kw), cam,
@@ -175,3 +177,33 @@ def test_unported_estimators_raise(kw):
     assert (k0, i0) == (k1, i1)
     nee = _torch_queue("sphere_plane", int(RenderType.NORMAL_NEE), pix, W, H, 7, 64, 6)
     np.testing.assert_array_equal(nee[0], a1)
+
+
+@pytest.mark.parametrize("name", ["sphere_plane", "museum"])
+def test_early_exit_leaves_render_pixels_bit_equal(name, monkeypatch, one_thread):
+    """``early_exit`` True stops the lockstep loop once no path is alive;
+    False runs every bounce to ``max_bounces``.  The bounces past the
+    last live path change nothing: radiance, cost and the albedo
+    gradient are bit-equal."""
+    scene = getattr(tscenes, name)(device="cpu")
+    prep = ttrace.prepare(scene)
+    cam = Camera.create(*CAMERAS[name], device="cpu")
+    W = H = 16
+    pix = torch.arange(W * H)
+    calls = []
+    step = tint._bounce_step
+    monkeypatch.setattr(tint, "_bounce_step", lambda *a, **k: calls.append(1) or step(*a, **k))
+    out = {}
+    for early_exit in (True, False):
+        calls.clear()
+        st = RenderSettings(max_bounces=16, early_exit=early_exit)
+        albedo = scene.albedo.clone().requires_grad_(True)
+        col, cost = tint.render_pixels(prep, scene.with_materials(albedo=albedo), st, cam,
+                                       pix % W, pix // W, W, H, 5)
+        bounces = len(calls)   # the checkpointed backward runs each bounce again
+        grad, = torch.autograd.grad(col.sum(), albedo)
+        out[early_exit] = (col.detach(), cost, grad, bounces)
+    (c0, k0, g0, n0), (c1, k1, g1, n1) = out[True], out[False]
+    assert n0 < n1 == 16
+    assert torch.equal(c0, c1) and torch.equal(k0, k1) and torch.equal(g0, g1)
+    assert float(g0.abs().sum()) > 0

@@ -57,7 +57,7 @@ def _jax_grid(scene, prep, n_batches=2, batch=4096, res=RES):
 
 def _carry(grid):
     return tph.photon_grid_from_numpy({k: np.asarray(getattr(grid, k))
-                                       for k in GRID_FIELDS}, grid.res)
+                                       for k in GRID_FIELDS}, grid.res, device="cpu")
 
 
 @pytest.mark.parametrize("name,fit", [("museum", True), ("sphere_plane", True),
@@ -66,17 +66,17 @@ def test_grid_bounds_match_jax(name, fit):
     st_j = JSettings(photon_grid_fit_scene=fit)
     st_t = RenderSettings(photon_grid_fit_scene=fit)
     lo0, hi0 = jph.grid_bounds_for_scene(getattr(jscenes, name)(), st_j)
-    lo1, hi1 = tph.grid_bounds_for_scene(getattr(tscenes, name)(), st_t)
+    lo1, hi1 = tph.grid_bounds_for_scene(getattr(tscenes, name)(device="cpu"), st_t)
     np.testing.assert_array_equal(lo1, np.asarray(lo0))
     np.testing.assert_array_equal(hi1, np.asarray(hi0))
     assert lo1.dtype == np.float32
 
 
 def test_emit_photons_matches_jax():
-    j, t = jscenes.museum(), tscenes.museum()
+    j, t = jscenes.museum(), tscenes.museum(device="cpu")
     ref = _jax_grid(j, jtrace.prepare(j), n_batches=2)
     st = RenderSettings(render_type=RenderType.PNEE)
-    grid = tph.PhotonGrid.create(t.num_lights, *tph.grid_bounds_for_scene(t, st), RES)
+    grid = tph.PhotonGrid.create(t.num_lights, *tph.grid_bounds_for_scene(t, st), RES, device="cpu")
     prep = ttrace.prepare(t)
     for k in range(2):
         new = tph.emit_photons(grid, prep, t, st, 100 + k, 4096)
@@ -133,7 +133,7 @@ def _per_path_rule(ref, out, S):
 def test_render_queue_pnee_matches_jax(debug):
     """PNEE through ``render_queue`` on the museum, with the light-debug
     view as its second case."""
-    j, t = jscenes.museum(), tscenes.museum()
+    j, t = jscenes.museum(), tscenes.museum(device="cpu")
     pj = jtrace.prepare(j)
     grid_j = _jax_grid(j, pj, n_batches=2)
     W = H = 16
@@ -144,20 +144,20 @@ def test_render_queue_pnee_matches_jax(debug):
         jnp.asarray(pix), W, H, s, 64, photon_grid=grid_j))(jnp.uint32(7))
     out = tint.render_queue(
         ttrace.prepare(t), t, RenderSettings(render_type=RenderType.PNEE, **kw),
-        Camera.create(*MUSEUM_CAMERA), torch.from_numpy(pix), W, H, 7, 64,
+        Camera.create(*MUSEUM_CAMERA, device="cpu"), torch.from_numpy(pix), W, H, 7, 64,
         photon_grid=_carry(grid_j))
     _per_path_rule([np.asarray(x) for x in ref], [x.numpy() for x in out], W * H)
     # the guided pick differs from the uniform one
     uni = tint.render_queue(
         ttrace.prepare(t), t, RenderSettings(render_type=RenderType.NORMAL_NEE, **kw),
-        Camera.create(*MUSEUM_CAMERA), torch.from_numpy(pix), W, H, 7, 64)
+        Camera.create(*MUSEUM_CAMERA, device="cpu"), torch.from_numpy(pix), W, H, 7, 64)
     assert not np.allclose(uni[0].numpy(), out[0].numpy(), atol=1e-3)
 
 
 def test_render_queue_flat_pnee_matches_jax():
     """PNEE through the flat wavefront on a clustered mesh scene."""
     j = jscenes.mesh_scene(jscenes.surface_mesh(10))
-    t = tscenes.mesh_scene(tscenes.surface_mesh(10))
+    t = tscenes.mesh_scene(tscenes.surface_mesh(10), device="cpu")
     kw = dict(group=64, min_count=64)
     pj = jbvh.attach_clusters(jtrace.prepare(j), j, **kw)
     pt = tbvh.attach_clusters(ttrace.prepare(t), t, **kw)
@@ -171,7 +171,7 @@ def test_render_queue_flat_pnee_matches_jax():
         photon_grid=grid_j)
     out = twave.render_queue_flat(
         pt, t, RenderSettings(render_type=RenderType.PNEE, max_bounces=4),
-        Camera.create(*MESH_CAMERA), torch.from_numpy(pix), W, H, 3, 64,
+        Camera.create(*MESH_CAMERA, device="cpu"), torch.from_numpy(pix), W, H, 3, 64,
         photon_grid=_carry(grid_j))
     _per_path_rule([np.asarray(x) for x in ref], [x.numpy() for x in out], W * H)
     assert out[0].sum() > 0

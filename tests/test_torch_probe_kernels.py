@@ -103,7 +103,7 @@ CASES = {
 def _to_torch(scene):
     return scene_from_numpy({k: np.asarray(getattr(scene, k)) for k in TENSOR_FIELDS},
                             scene.num_inf, scene.num_shapes, scene.num_lights,
-                            scene.num_plights)
+                            scene.num_plights, device="cpu")
 
 
 def _case(name, device="cpu"):
@@ -207,7 +207,7 @@ def _doubled(cs):
     """``cs`` with every cluster twice: ids c and c + C have the same box,
     so every entry ties exactly with another."""
     two = {k: np.concatenate([getattr(cs, k).numpy()] * 2) for k in tcl.ARRAY_FIELDS}
-    return tcl.cluster_from_numpy(two, cs.families)
+    return tcl.cluster_from_numpy(two, cs.families, device="cpu")
 
 
 # C = 77 is a multiple of no lane count; 2 x 45 duplicated boxes tie in
@@ -361,7 +361,7 @@ def test_probe_blocks_matches_pallas(case):
     pj = jbvh.attach_clusters(jtrace.prepare(j), j, group=128, min_count=32)
     cj = pj.cluster
     cs = tcl.cluster_from_numpy({k: np.asarray(getattr(cj, k)) for k in tcl.ARRAY_FIELDS},
-                                cj.families)
+                                cj.families, device="cpu")
     o, d = _rays(n, seed=1)
     # three rays of four probe the cluster they enter first, so that slots hit
     fresh = (torch.full((n,), -torch.inf), torch.full((n,), -1, dtype=torch.int32))

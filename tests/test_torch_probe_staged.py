@@ -67,7 +67,7 @@ def _tri_set(rows, group=128):
     T = rows.shape[0]
     cj = jcl.build_clusters(rows, np.full(T, TRI, np.int32), np.arange(T), group=group)
     return cj, tcl.cluster_from_numpy(
-        {k: np.asarray(getattr(cj, k)) for k in tcl.ARRAY_FIELDS}, cj.families)
+        {k: np.asarray(getattr(cj, k)) for k in tcl.ARRAY_FIELDS}, cj.families, device="cpu")
 
 
 def _aimed_rays(n, seed, shift=0.0):

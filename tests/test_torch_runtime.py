@@ -64,7 +64,8 @@ START = ((0.5, 1.0, -2.0), 0.3, -0.7)
 def _controllers():
     seen = ([], [])
     return (jcc.CameraController(JCamera.create(*START), on_update=seen[0].append),
-            tcc.CameraController(Camera.create(*START), on_update=seen[1].append), seen)
+            tcc.CameraController(Camera.create(*START, device="cpu"),
+                                 on_update=seen[1].append), seen)
 
 
 def _assert_same_camera(jc, tc):
@@ -92,9 +93,9 @@ def test_controller_sequence_unknown_key_and_silent_set():
         t.key(name, count)
         _assert_same_camera(j.camera, t.camera)
     assert len(seen[0]) == len(seen[1]) == 6       # the unknown key fires nothing
-    t.set_silent(Camera.create((1.0, 2.0, 3.0), 0.0, 0.0))
+    t.set_silent(Camera.create((1.0, 2.0, 3.0), 0.0, 0.0, device="cpu"))
     assert len(seen[1]) == 6 and t.camera.location.tolist() == [1.0, 2.0, 3.0]
-    t.set(Camera.create((0.0, 0.0, 0.0), 0.0, 0.0))
+    t.set(Camera.create((0.0, 0.0, 0.0), 0.0, 0.0, device="cpu"))
     assert len(seen[1]) == 7 and seen[1][-1] is t.camera
     t.key("w", 10)            # forward from the origin at rotation 0: +z
     np.testing.assert_allclose(t.camera.location.numpy(), [0.0, 0.0, 0.3], atol=1e-6)

@@ -25,7 +25,7 @@ def _jax_arrays(scene):
 @pytest.mark.parametrize("scene_id", SCENE_IDS)
 def test_scene_tables_identical(scene_id):
     j = jscenes.select_scene(scene_id)
-    t = tscenes.select_scene(scene_id)
+    t = tscenes.select_scene(scene_id, device="cpu")
     for k, a in _jax_arrays(j).items():
         b = getattr(t, k).numpy()
         assert a.dtype == b.dtype, k
@@ -38,7 +38,7 @@ def test_scene_tables_identical(scene_id):
 def test_scene_from_numpy_round_trips(scene_id):
     j = jscenes.select_scene(scene_id)
     t = scene_from_numpy(_jax_arrays(j), j.num_inf, j.num_shapes,
-                         j.num_lights, j.num_plights)
+                         j.num_lights, j.num_plights, device="cpu")
     for k, a in _jax_arrays(j).items():
         np.testing.assert_array_equal(a, getattr(t, k).numpy(), err_msg=k)
     back = t.to("cpu")
@@ -66,13 +66,13 @@ def test_prim_aabb_refuses_a_plane():
 @pytest.mark.parametrize("scene_id", [0, 100, 101])
 def test_finite_aabb_matches_jax(scene_id):
     want = jscene.finite_aabb(jscenes.select_scene(scene_id))
-    got = tscene.finite_aabb(tscenes.select_scene(scene_id))
+    got = tscene.finite_aabb(tscenes.select_scene(scene_id, device="cpu"))
     for a, b in zip(want, got):
         np.testing.assert_array_equal(b, a)
 
 
 def test_museum_shape():
-    s = tscenes.museum()
+    s = tscenes.museum(device="cpu")
     ptype = s.ptype.numpy()
     assert s.num_shapes == 146 and s.num_lights == 108
     assert [(ptype == k).sum() for k in range(6)] == [1, 0, 108, 27, 10, 0]
@@ -89,7 +89,7 @@ def test_mesh_scenes_not_ported(scene_id):
                 registry.select_scene(scene_id)
         return
     j = jscenes.select_scene(scene_id)
-    t = tscenes.select_scene(scene_id)
+    t = tscenes.select_scene(scene_id, device="cpu")
     for k in ("num_inf", "num_shapes", "num_lights", "num_plights"):
         assert getattr(j, k) == getattr(t, k), k
     np.testing.assert_array_equal(np.asarray(j.ptype), t.ptype.numpy())
@@ -106,13 +106,13 @@ def test_cloud_and_meshes_identical(n):
     """The generators and the mesh scenes, without and with an uploaded
     mesh (the upload transform: x0.5, +5 z)."""
     np.testing.assert_array_equal(tscenes.triangle_cloud(n), jscenes.triangle_cloud(n))
-    _assert_same_tables(jscenes.cloud(n), tscenes.cloud(n))
+    _assert_same_tables(jscenes.cloud(n), tscenes.cloud(n, device="cpu"))
     mesh = np.random.default_rng(n).uniform(-1, 1, (n, 3, 3)).astype(np.float32)
     meshes = {tscenes.MESH_BUNNY_HIGH: mesh, tscenes.MESH_CLOUD_10K: mesh[::-1]}
     _assert_same_tables(jscenes.cloud(n, meshes, jscenes.MESH_CLOUD_10K),
-                        tscenes.cloud(n, meshes, tscenes.MESH_CLOUD_10K))
-    _assert_same_tables(jscenes.bunny_high(meshes), tscenes.bunny_high(meshes))
-    assert tscenes.bunny_high(meshes).num_shapes == 4 + n
+                        tscenes.cloud(n, meshes, tscenes.MESH_CLOUD_10K, device="cpu"))
+    _assert_same_tables(jscenes.bunny_high(meshes), tscenes.bunny_high(meshes, device="cpu"))
+    assert tscenes.bunny_high(meshes, device="cpu").num_shapes == 4 + n
 
 
 @pytest.mark.parametrize("n", [5, 24])
@@ -120,12 +120,13 @@ def test_surface_mesh_scene_identical(n):
     surf = tscenes.surface_mesh(n)
     np.testing.assert_array_equal(surf, jscenes.surface_mesh(n))
     assert surf.shape == (2 * n * (n - 1), 3, 3)
-    _assert_same_tables(jscenes.mesh_scene(jscenes.surface_mesh(n)), tscenes.mesh_scene(surf))
+    _assert_same_tables(jscenes.mesh_scene(jscenes.surface_mesh(n)),
+                        tscenes.mesh_scene(surf, device="cpu"))
 
 
 def test_invalid_scene_raises():
     with pytest.raises(ValueError):
-        tscenes.select_scene(42)
+        tscenes.select_scene(42, device="cpu")
 
 
 @pytest.mark.parametrize("scene_id,W,H", [(0, 64, 48), (100, 37, 29)])
@@ -141,7 +142,7 @@ def test_primary_rays_allclose(scene_id, W, H):
     o0, d0 = jcamera.primary_rays(jc, jnp.asarray(px), jnp.asarray(py),
                                   jnp.asarray(jx), jnp.asarray(jy), W, H)
     tc = tcamera.camera_from_numpy(np.asarray(jc.location), np.asarray(jc.rot_x),
-                                   np.asarray(jc.rot_y))
+                                   np.asarray(jc.rot_y), device="cpu")
     o1, d1 = tcamera.primary_rays(tc, torch.from_numpy(px), torch.from_numpy(py),
                                   torch.from_numpy(jx), torch.from_numpy(jy), W, H)
     np.testing.assert_array_equal(np.asarray(o0), o1.numpy())

@@ -43,7 +43,7 @@ from wasm_pathtracer_tpu_torch.ops import trace as ttrace
 def _to_torch(scene):
     return scene_from_numpy({k: np.asarray(getattr(scene, k)) for k in TENSOR_FIELDS},
                             scene.num_inf, scene.num_shapes, scene.num_lights,
-                            scene.num_plights)
+                            scene.num_plights, device="cpu")
 
 
 def _all_families(emissive_sphere_and_square: bool):

@@ -3,6 +3,7 @@ CPU.  Accumulated buffers follow the per-path rule of
 ``test_torch_integrator.py``: sample counts equal, per-pixel radiance
 sums agree (rtol 1e-3, atol 2e-3) on >= 99% of pixels."""
 
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -16,14 +17,19 @@ from wasm_pathtracer_tpu.config import RenderSettings as JSettings
 from wasm_pathtracer_tpu.config import RenderType as JType
 from wasm_pathtracer_tpu.ops import accum as jaccum
 from wasm_pathtracer_tpu.runtime.session import Session as JSession
-from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+from wasm_pathtracer_tpu_torch.config import DebugView, RenderSettings, RenderType
+from wasm_pathtracer_tpu_torch.models import camera as tcamera
 from wasm_pathtracer_tpu_torch.models import scenes as tscenes
-from wasm_pathtracer_tpu_torch.models.scene import TENSOR_FIELDS
-from wasm_pathtracer_tpu_torch.ops import accum
+from wasm_pathtracer_tpu_torch.models.scene import (TENSOR_FIELDS, Material, SceneBuilder,
+                                                   scene_from_numpy)
+from wasm_pathtracer_tpu_torch.ops import accum, adaptive, photon
+from wasm_pathtracer_tpu_torch.ops import cluster as tcluster
 from wasm_pathtracer_tpu_torch.ops.cluster import ARRAY_FIELDS
 from wasm_pathtracer_tpu_torch.ops.trace import INDEX_FIELDS
 from wasm_pathtracer_tpu_torch.runtime import session as tsession
 from wasm_pathtracer_tpu_torch.runtime.session import Session
+
+from tests.torch_port_helpers import one_thread, tensors_of  # noqa: F401 (a fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -61,7 +67,7 @@ def test_write_samples_matches_jax():
     col = r.random((n, 3), dtype=np.float32)
     jb = jaccum.write_samples(jaccum.AccumBuffer.create(W, H), jnp.asarray(px),
                               jnp.asarray(py), jnp.asarray(col))
-    tb = accum.write_samples(accum.AccumBuffer.create(W, H), torch.as_tensor(px),
+    tb = accum.write_samples(accum.AccumBuffer.create(W, H, device="cpu"), torch.as_tensor(px),
                              torch.as_tensor(py), torch.as_tensor(col))
     np.testing.assert_array_equal(np.asarray(jb.count), tb.count.numpy())
     np.testing.assert_allclose(tb.acc.numpy(), np.asarray(jb.acc), rtol=1e-5)
@@ -83,7 +89,7 @@ def test_session_reset_and_camera_update():
 
 @pytest.mark.parametrize("kw", [dict(render_type=RenderType.PNEE),
                                 dict(adaptive=True)])
-def test_session_rejects_unported_settings(kw):
+def test_session_pnee_and_adaptive_match_jax(kw):
     """PNEE and adaptive sampling are ported: a session with either on
     its left half renders as the JAX session does (counts equal, per-pixel
     sums by the per-path rule)."""
@@ -103,7 +109,7 @@ def test_session_rejects_unported_settings(kw):
     assert t.buffer.count[:, :16].sum() > 0 and j.num_bvh_hits == t.num_bvh_hits
 
 
-def test_session_rejects_mesh_scenes_and_upload():
+def test_session_mesh_scenes_and_upload_match_jax():
     """Mesh scenes and mesh upload are ported: the bunny slot (scene 2)
     renders without its mesh, ``store_mesh`` rebuilds the scene that uses
     the uploaded mesh (and only that one) as the JAX session does, and a
@@ -158,12 +164,131 @@ def test_cluster_session_buffers_match_jax():
     assert t.results().max() > 0
 
 
+def test_render_settings_fields_match_jax():
+    """Field names, their order and defaults equal the JAX package's, and
+    every JAX field is a keyword the port takes.  ``use_bvh4`` and
+    ``debug_view``, read by nothing in either package, are not ported:
+    any value but the default raises instead of being ignored."""
+    want = [(f.name, f.default) for f in dataclasses.fields(JSettings)]
+    assert [(f.name, f.default) for f in dataclasses.fields(RenderSettings)] == want
+    for k, v in want:
+        assert getattr(RenderSettings(**{k: v}), k) == v
+    for kw in ({"use_bvh4": False}, {"debug_view": DebugView.DEPTH}):
+        JSettings(**kw)
+        with pytest.raises(ValueError, match=next(iter(kw))):
+            RenderSettings(**kw)
+        with pytest.raises(ValueError):
+            RenderSettings().replace(**kw)
+
+
+@pytest.mark.parametrize("scene_id", [100, 4])
+@pytest.mark.parametrize("off", ["use_regen", "early_exit"])
+def test_per_pixel_session_matches_jax(scene_id, off, one_thread):
+    """With ``use_regen`` or ``early_exit`` off both sessions render one
+    sample a picked pixel through ``render_pixels`` (left half uniform,
+    right half adaptive): scene 100 on the dense prep, scene 4 (the
+    10k-triangle cloud) on its cluster prep."""
+    mb, ticks = (6, 4096) if scene_id == 100 else (4, 2048)
+    kw = {"max_bounces": mb, "ray_batch_size": 1024, off: False}
+    j = JSession(32, 24, scene_id=scene_id,
+                 left=JSettings(render_type=JType.NORMAL_NEE, **kw),
+                 right=JSettings(render_type=JType.NORMAL_NEE, adaptive=True, **kw))
+    t = Session(32, 24, scene_id=scene_id,
+                left=RenderSettings(render_type=RenderType.NORMAL_NEE, **kw),
+                right=RenderSettings(render_type=RenderType.NORMAL_NEE, adaptive=True, **kw),
+                device="cpu")
+    assert (t.prep.cluster is not None) == (scene_id == 4)
+    assert j.compute(ticks) == t.compute(ticks) == ticks
+    np.testing.assert_array_equal(np.asarray(j.buffer.count), t.buffer.count.numpy())
+    a0, a1 = np.asarray(j.buffer.acc), t.buffer.acc.numpy()
+    assert np.isclose(a1, a0, rtol=1e-3, atol=2e-3).all(-1).mean() >= 0.99
+    assert j.num_bvh_hits == t.num_bvh_hits > 0
+    assert t.buffer.count[:, :16].sum() > 0 and t.buffer.count[:, 16:].sum() > 0
+
+
+def _sphere_plane_arrays():
+    s = tscenes.sphere_plane(device="cpu")
+    return ({k: getattr(s, k).numpy() for k in TENSOR_FIELDS},
+            s.num_inf, s.num_shapes, s.num_lights, s.num_plights)
+
+
+def _cluster_inputs():
+    rows = tscenes.triangle_cloud(5).reshape(-1, 9)
+    return rows, np.full(5, 2, np.int32), np.arange(5)
+
+
+def _cluster_arrays():
+    cs = tcluster.build_clusters(*_cluster_inputs(), device="cpu")
+    return {k: getattr(cs, k).numpy() for k in ARRAY_FIELDS}, cs.families
+
+
+def _builder():
+    b = SceneBuilder()
+    b.add_sphere((0.0, 0.0, 0.0), 1.0, Material.diffuse(0.5, 0.5, 0.5))
+    return b
+
+
+def _session_tensors(s):
+    return (s.buffer, s.camera, s.scene, s.right.photon_grid)
+
+
+# every public constructor that makes tensors from nothing: called as
+# fn(**kw) with kw = {} (the card) or {"device": ...}
+CONSTRUCTORS = {
+    "museum": lambda **kw: tscenes.museum(**kw),
+    "sphere_plane": lambda **kw: tscenes.sphere_plane(**kw),
+    "whitted": lambda **kw: tscenes.whitted(**kw),
+    "bunny_high": lambda **kw: tscenes.bunny_high(**kw),
+    "cloud": lambda **kw: tscenes.cloud(8, **kw),
+    "mesh_scene": lambda **kw: tscenes.mesh_scene(tscenes.surface_mesh(3), **kw),
+    "select_scene": lambda **kw: tscenes.select_scene(100, **kw),
+    "SceneBuilder.build": lambda **kw: _builder().build(**kw),
+    "scene_from_numpy": lambda **kw: scene_from_numpy(*_sphere_plane_arrays(), **kw),
+    "Camera.create": lambda **kw: tcamera.Camera.create((0.0, 1.0, -2.0), 0.1, 0.2, **kw),
+    "camera_from_numpy": lambda **kw: tcamera.camera_from_numpy(
+        np.zeros(3, np.float32), np.float32(0.1), np.float32(0.2), **kw),
+    "initial_camera": lambda **kw: tcamera.initial_camera(0, **kw),
+    "AccumBuffer.create": lambda **kw: accum.AccumBuffer.create(8, 4, **kw),
+    "PhotonGrid.create": lambda **kw: photon.PhotonGrid.create(3, (0, 0, 0), (1, 1, 1), 2, **kw),
+    "photon_grid_from_numpy": lambda **kw: photon.photon_grid_from_numpy(
+        dict(bins=np.ones((8, 3)), lo=np.zeros(3), hi=np.ones(3), num_photons=0), 2, **kw),
+    "build_clusters": lambda **kw: tcluster.build_clusters(*_cluster_inputs(), **kw),
+    "cluster_from_numpy": lambda **kw: tcluster.cluster_from_numpy(*_cluster_arrays(), **kw),
+    "random_pixels": lambda **kw: adaptive.random_pixels(16, 3, 0, 0, 4, 4, **kw),
+    "Session": lambda **kw: _session_tensors(Session(8, 8, scene_id=100, **kw)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONSTRUCTORS))
+def test_constructor_defaults_to_the_card(name):
+    """Without a device every public constructor asks for CUDA, which
+    raises on a host without a card (it never renders on the CPU); with
+    ``device="cpu"`` it builds CPU tensors."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: test_constructor_lands_on_the_card covers it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CONSTRUCTORS[name]()
+    got = tensors_of(CONSTRUCTORS[name](device="cpu"))
+    assert got and all(t.device.type == "cpu" for t in got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CONSTRUCTORS))
+def test_constructor_lands_on_the_card(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    got = tensors_of(CONSTRUCTORS[name]())
+    assert got and all(t.device.type == "cuda" for t in got)
+
+
 def test_cuda_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         tsession.resolve_device("cuda")
     with pytest.raises(RuntimeError):
         Session(32, 32, scene_id=100)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsession.resolve_device()
     assert tsession.resolve_device("cpu").type == "cpu"
 
 
@@ -191,11 +316,12 @@ def test_cli_uploads_obj_into_bunny_slot(tmp_path):
 
 
 def test_port_never_loads_jax(tmp_path):
-    """Importing the port (its runtime and parallel modules too) and
-    rendering a path traced and a Whitted frame through it, in a fresh
-    interpreter, leaves JAX unloaded."""
+    """Importing the port (its runtime and parallel modules and its
+    example too) and rendering a path traced and a Whitted frame through
+    it, in a fresh interpreter, leaves JAX unloaded."""
     code = (
         "import sys\n"
+        "from wasm_pathtracer_tpu_torch.examples import inverse_render\n"
         "from wasm_pathtracer_tpu_torch.runtime import cli\n"
         "from wasm_pathtracer_tpu_torch.ops import whitted\n"
         "from wasm_pathtracer_tpu_torch.runtime import checkpoint, driver, live\n"

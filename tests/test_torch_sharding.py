@@ -81,8 +81,8 @@ def init_gloo(rank, world, tmp):
 
 
 def _sp():
-    scene = tscenes.sphere_plane()
-    return scene, ttrace.prepare(scene), Camera.create(*SP_CAMERA)
+    scene = tscenes.sphere_plane(device="cpu")
+    return scene, ttrace.prepare(scene), Camera.create(*SP_CAMERA, device="cpu")
 
 
 def case_dense(mesh, spp, rt=RenderType.NORMAL_NEE, photon_grid=None, lanes=128):
@@ -96,13 +96,13 @@ def case_dense(mesh, spp, rt=RenderType.NORMAL_NEE, photon_grid=None, lanes=128)
 
 def case_flat(mesh, spp, lanes=64):
     """cloud(96) clustered, 16x16, 5 bounces, ``spp`` paths a pixel."""
-    scene = tscenes.cloud(96)
+    scene = tscenes.cloud(96, device="cpu")
     prep = tbvh.attach_clusters(ttrace.prepare(scene), scene, **CLUSTERS)
     assert prep.cluster is not None
     st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=5)
     pix = torch.arange(16 * 16).repeat(spp)
-    return render_queue_flat_sharded(mesh, prep, scene, st, Camera.create(*CLOUD_CAMERA),
-                                     pix, 16, 16, 11, lanes)
+    cam = Camera.create(*CLOUD_CAMERA, device="cpu")
+    return render_queue_flat_sharded(mesh, prep, scene, st, cam, pix, 16, 16, 11, lanes)
 
 
 def case_image(mesh, spp, W=16, H=16, max_bounces=4, seed=9):
@@ -138,7 +138,7 @@ TRAIN_W = TRAIN_H = 16
 
 
 def _train_setup():
-    scene = tscenes.mesh_scene(tscenes.surface_mesh(6))
+    scene = tscenes.mesh_scene(tscenes.surface_mesh(6), device="cpu")
     st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=3, rr_clamp_max=0.95)
     target = np.random.default_rng(4).uniform(0.0, 0.4, (TRAIN_H, TRAIN_W, 3))
     return scene, st, torch.from_numpy(target.astype(np.float32))
@@ -158,10 +158,10 @@ def case_train(mesh):
     out = {}
     sgd = make_train_step(mesh, prep, st, TRAIN_W, TRAIN_H, lr=0.5)
     out.update({f"sgd_{k}": v for k, v in _leaves(
-        *sgd(scene, Camera.create(*MESH_CAMERA), target, 5)).items()})
+        *sgd(scene, Camera.create(*MESH_CAMERA, device="cpu"), target, 5)).items()})
     adam = make_train_step(mesh, prep, st, TRAIN_W, TRAIN_H,
                            optimizer=lambda p: torch.optim.Adam(p, lr=0.02))
-    sc, cam = scene, Camera.create(*MESH_CAMERA)
+    sc, cam = scene, Camera.create(*MESH_CAMERA, device="cpu")
     for seed in (5, 16):
         loss, sc, cam = adam(sc, cam, target, seed)
     out.update({f"adam_{k}": v for k, v in _leaves(loss, sc, cam).items()})
@@ -343,7 +343,7 @@ def _jax_queue_reference(kind):
                                 jnp.uint32(100), 2048)
         tgrid = tph.photon_grid_from_numpy(
             {k: np.asarray(getattr(grid, k)) for k in ("bins", "lo", "hi", "num_photons")},
-            grid.res)
+            grid.res, device="cpu")
     out = jax.jit(lambda s: jint.render_queue(
         prep, j, JSettings(render_type=rt, max_bounces=6), JCamera.create(*SP_CAMERA),
         pix, 16, 16, s, 64, photon_grid=grid))(jnp.uint32(5))

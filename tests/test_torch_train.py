@@ -14,6 +14,9 @@ moved light; the cluster prep with the lights left dense takes a light
 step; and after a light step the kernels' tables hold the moved light.
 """
 
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -39,6 +42,8 @@ from wasm_pathtracer_tpu_torch.ops import trace as ttrace
 from wasm_pathtracer_tpu_torch.parallel import make_ray_mesh as tmake_ray_mesh
 from wasm_pathtracer_tpu_torch.parallel import make_train_step
 
+from tests.torch_port_helpers import one_thread  # noqa: F401 (a fixture)
+
 W = H = 16
 # the one-member mesh: one process on the CPU
 CPU = tmake_ray_mesh(device="cpu")
@@ -48,7 +53,7 @@ CAMERA = ((0.0, 1.0, -6.0), 0.1, 0.0)
 def _to_torch(scene):
     return scene_from_numpy({k: np.asarray(getattr(scene, k)) for k in TENSOR_FIELDS},
                             scene.num_inf, scene.num_shapes, scene.num_lights,
-                            scene.num_plights)
+                            scene.num_plights, device="cpu")
 
 
 def _target():
@@ -89,7 +94,7 @@ def _steps(case, n_steps):
     t = _to_torch(j)
     tstep = make_train_step(CPU, ttrace.prepare(t), ts, W, H, optimizer=topt, **kw)
     target = _target()
-    jcam, tcam = JCamera.create(*CAMERA), Camera.create(*CAMERA)
+    jcam, tcam = JCamera.create(*CAMERA), Camera.create(*CAMERA, device="cpu")
     jsc, tsc = j, t
     state = jstep.init(j, jcam) if jopt is not None else None
     out = []
@@ -148,7 +153,7 @@ def test_train_step_matches_jax(case):
 
 
 def _mesh_scene(n=24):
-    return tscenes.mesh_scene(tscenes.surface_mesh(n))
+    return tscenes.mesh_scene(tscenes.surface_mesh(n), device="cpu")
 
 
 def test_train_step_guards():
@@ -187,7 +192,7 @@ def test_train_lights_cluster_prep_guard_and_step():
     step = make_train_step(CPU, prep, st, W, H, lr=0.01, train_lights=True,
                            train_materials=False, train_camera=False)
     target = torch.zeros((H, W, 3)) + 0.2
-    loss, scene2, _ = step(scene, Camera.create(*CAMERA), target, 5)
+    loss, scene2, _ = step(scene, Camera.create(*CAMERA, device="cpu"), target, 5)
     assert np.isfinite(float(loss))
     rows = scene2.params[scene2.light_shape.long()]
     assert torch.isfinite(rows).all()
@@ -214,7 +219,7 @@ def test_tables_follow_a_light_step(monkeypatch):
     step = make_train_step(CPU, prep, st, W, H, lr=50.0, train_lights=True,
                            train_materials=False, train_camera=False)
     target = torch.zeros((H, W, 3)) + 5.0
-    _, moved, cam = step(scene, Camera.create(*CAMERA), target, 3)
+    _, moved, cam = step(scene, Camera.create(*CAMERA, device="cpu"), target, 3)
     lid = moved.light_shape.long()
     assert (moved.params[lid] - scene.params[lid]).abs().max() > 1e-3
     step(moved, cam, target, 4)
@@ -236,3 +241,53 @@ def test_tables_follow_a_light_step(monkeypatch):
     torch.testing.assert_close(t_new, torch.full_like(t_new, 3.0))
     t_old, _ = sk.fused_nearest(prep.tables, o, d, prep.sid_of_slot)
     torch.testing.assert_close(t_old, torch.full_like(t_old, 2.5))
+
+
+def _example_output(main, argv, capsys):
+    """(exit code, initial albedo error as printed, [(loss, max albedo
+    error) of each printed step]) of an inverse-render example's run."""
+    rc = main(argv)
+    out = capsys.readouterr().out
+    steps = [(float(line.split()[3]), float(line.split()[7])) for line in out.splitlines()
+             if line.startswith("step")]
+    init = [line.split()[3] for line in out.splitlines()
+            if line.startswith("max albedo error:")]
+    return rc, init, steps
+
+
+def test_inverse_render_example_runs(capsys, monkeypatch, one_thread):
+    """The port's inverse-render example against the JAX package's
+    (``examples/inverse_render.py``) at 2 steps of a 12x12 frame on the
+    CPU: the same verdict, the same initial albedo error, and every
+    printed loss and albedo error equal to the printed precision (5 and
+    3 decimals; the two packages sum in other orders).  The JAX example
+    runs as written, but for its ``render_image_sharded`` calls run under
+    ``jax.jit``: called eagerly, ``shard_map`` dispatches op by op, about
+    three minutes of this test on the CPU; jit changes no printed digit."""
+    import wasm_pathtracer_tpu.parallel as jparallel
+    from wasm_pathtracer_tpu_torch.examples import inverse_render
+    eager, jitted = jparallel.render_image_sharded, {}
+
+    def render_jitted(mesh, prep, scene, st, cam, width, height, seed, spp=1):
+        key = (id(mesh), id(prep), st, width, height, spp)
+        if key not in jitted:
+            jitted[key] = jax.jit(lambda scene, cam, seed: eager(
+                mesh, prep, scene, st, cam, width, height, seed, spp=spp))
+        return jitted[key](scene, cam, seed)
+
+    monkeypatch.setattr(jparallel, "render_image_sharded", render_jitted)
+    spec = importlib.util.spec_from_file_location(
+        "jax_inverse_render", pathlib.Path(__file__).parents[1] / "examples/inverse_render.py")
+    jax_example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_example)
+    argv = ["--steps", "2", "--size", "12"]
+    j_rc, j_init, j_steps = _example_output(jax_example.main, argv, capsys)
+    assert len(jitted) == 2
+    rc, init, steps = _example_output(inverse_render.main, ["--device", "cpu"] + argv, capsys)
+    assert rc == j_rc and rc in (0, 1)
+    assert len(init) == 1 and init == j_init
+    assert len(steps) == len(j_steps) == 2 and np.isfinite(steps).all()
+    np.testing.assert_allclose([s[0] for s in steps], [s[0] for s in j_steps],
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose([s[1] for s in steps], [s[1] for s in j_steps],
+                               rtol=0, atol=1e-3)

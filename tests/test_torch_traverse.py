@@ -64,7 +64,7 @@ def _rays(n, seed=0, spread=3.0):
 def _to_torch(scene):
     return scene_from_numpy({k: np.asarray(getattr(scene, k)) for k in TENSOR_FIELDS},
                             scene.num_inf, scene.num_shapes, scene.num_lights,
-                            scene.num_plights)
+                            scene.num_plights, device="cpu")
 
 
 def _mesh_scene(n=10):
@@ -397,7 +397,7 @@ def test_render_queue_matches_jax_per_path(kind):
     a0, c0, k0 = (np.asarray(x) for x in ref[:3])
     a1, c1, k1, i1 = tint.render_queue(
         pt, t, RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=4),
-        Camera.create(*CAMERA), torch.from_numpy(pix), W, H, 5, 64, return_iters=True)
+        Camera.create(*CAMERA, device="cpu"), torch.from_numpy(pix), W, H, 5, 64, return_iters=True)
     np.testing.assert_array_equal(c1.numpy(), c0)
     assert (c0 == 1).all() and i1 == int(ref[3])
     np.testing.assert_array_equal(k1.numpy(), k0.astype(np.int64))

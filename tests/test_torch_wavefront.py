@@ -68,7 +68,7 @@ def _cloud_scene(n_tri=300, n_sphere=0, seed=3):
 def _to_torch(scene):
     return scene_from_numpy({k: np.asarray(getattr(scene, k)) for k in TENSOR_FIELDS},
                             scene.num_inf, scene.num_shapes, scene.num_lights,
-                            scene.num_plights)
+                            scene.num_plights, device="cpu")
 
 
 CLOUD = dict(group=64, min_count=64)
@@ -90,7 +90,7 @@ def _render_both(j, kw, rt, max_bounces, pix, W, H, lanes, camera=CLOUD_CAMERA,
             return_iters=True)
     out = twave.render_queue_flat(
         pt, t, RenderSettings(render_type=RenderType(rt), max_bounces=max_bounces),
-        Camera.create(*camera), torch.from_numpy(pix), W, H, seed, lanes,
+        Camera.create(*camera, device="cpu"), torch.from_numpy(pix), W, H, seed, lanes,
         return_iters=True)
     return (tuple(np.asarray(x) for x in ref[:3]) + (int(ref[3]),),
             tuple(x.numpy() for x in out[:3]) + (out[3],))
@@ -150,7 +150,7 @@ def test_flat_edge_cases():
     j = _cloud_scene(n_tri=100)
     t = _to_torch(j)
     prep = tbvh.attach_clusters(ttrace.prepare(t), t, **CLOUD)
-    cam = Camera.create(*CLOUD_CAMERA)
+    cam = Camera.create(*CLOUD_CAMERA, device="cpu")
     st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=4)
     W = H = 16
     # empty queue
@@ -174,7 +174,7 @@ def test_flat_lane_count_independent():
     prep = tbvh.attach_clusters(ttrace.prepare(t), t, **CLOUD)
     st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=3)
     W = H = 32
-    outs = [twave.render_queue_flat(prep, t, st, Camera.create(*CLOUD_CAMERA),
+    outs = [twave.render_queue_flat(prep, t, st, Camera.create(*CLOUD_CAMERA, device="cpu"),
                                     torch.arange(W * H), W, H, 9, lanes)
             for lanes in (64, 256)]
     (a64, c64, _), (a256, c256, _) = outs
@@ -193,9 +193,8 @@ def test_flat_equals_port_render_queue():
     st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=4)
     W = H = 16
     pix = torch.from_numpy(np.random.default_rng(4).integers(0, W * H, 700))
-    a0, c0, _ = tint.render_queue(prep, t, st, Camera.create(*CLOUD_CAMERA), pix, W, H, 3,
-                                  96)
-    a1, c1, _ = twave.render_queue_flat(prep, t, st, Camera.create(*CLOUD_CAMERA), pix, W,
-                                        H, 3, 96)
+    cam = Camera.create(*CLOUD_CAMERA, device="cpu")
+    a0, c0, _ = tint.render_queue(prep, t, st, cam, pix, W, H, 3, 96)
+    a1, c1, _ = twave.render_queue_flat(prep, t, st, cam, pix, W, H, 3, 96)
     assert torch.equal(c0, c1) and int(c1.sum()) == 700
     np.testing.assert_allclose(a1.numpy(), a0.numpy(), rtol=1e-6, atol=1e-6)

@@ -43,7 +43,7 @@ from wasm_pathtracer_tpu_torch.ops import whitted as twhitted
 def _to_torch(scene):
     return scene_from_numpy({k: np.asarray(getattr(scene, k)) for k in TENSOR_FIELDS},
                             scene.num_inf, scene.num_shapes, scene.num_lights,
-                            scene.num_plights)
+                            scene.num_plights, device="cpu")
 
 
 def _render_pair(scene, camera, W=32, H=32, depth=3):
@@ -55,7 +55,7 @@ def _render_pair(scene, camera, W=32, H=32, depth=3):
     t = _to_torch(scene)
     tp = torch.arange(W * H)
     got = twhitted.render_whitted(ttrace.prepare(t), t, RenderSettings(),
-                                  Camera.create(*camera), tp % W, tp // W, W, H,
+                                  Camera.create(*camera, device="cpu"), tp % W, tp // W, W, H,
                                   depth=depth)
     return np.asarray(want).reshape(H, W, 3), got.numpy().reshape(H, W, 3)
 

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from wasm_pathtracer_tpu_torch.utils import vecmath as vm
+from wasm_pathtracer_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,7 +23,8 @@ class Camera:
     rot_y: torch.Tensor     # () f32
 
     @staticmethod
-    def create(location, rot_x=0.0, rot_y=0.0, device="cpu") -> "Camera":
+    def create(location, rot_x=0.0, rot_y=0.0, device=None) -> "Camera":
+        device = resolve_device(device)
         def f32(v):
             return torch.tensor(np.asarray(v, np.float32), device=device)
         return Camera(location=f32(location), rot_x=f32(rot_x),
@@ -33,7 +35,7 @@ class Camera:
                       self.rot_y.to(device))
 
 
-def camera_from_numpy(location, rot_x, rot_y, device="cpu") -> Camera:
+def camera_from_numpy(location, rot_x, rot_y, device=None) -> Camera:
     """The port's camera from the JAX package's ``Camera`` fields read
     with ``np.asarray``."""
     return Camera.create(location, rot_x, rot_y, device=device)
@@ -74,7 +76,7 @@ INITIAL_CAMERAS = {
 }
 
 
-def initial_camera(scene_id: int, device="cpu") -> Camera:
+def initial_camera(scene_id: int, device=None) -> Camera:
     cfg = INITIAL_CAMERAS.get(scene_id, dict(location=(0.0, 0.0, 0.0),
                                              rot_x=0.0, rot_y=0.0))
     return Camera.create(**cfg, device=device)

@@ -15,6 +15,8 @@ import enum
 import numpy as np
 import torch
 
+from wasm_pathtracer_tpu_torch.utils.device import resolve_device
+
 
 class PrimType(enum.IntEnum):
     PLANE = 0      # infinite; always in the brute-force prefix
@@ -143,10 +145,11 @@ class SceneData:
 
 def scene_from_numpy(arrays: dict, num_inf: int, num_shapes: int,
                      num_lights: int, num_plights: int,
-                     device="cpu") -> SceneData:
+                     device=None) -> SceneData:
     """Build a :class:`SceneData` from a dict of arrays keyed by field
     name — e.g. the JAX package's ``SceneData`` read field by field with
     ``np.asarray`` — so both packages compute on identical tables."""
+    device = resolve_device(device)
     kw = {}
     for k in TENSOR_FIELDS:
         a = np.asarray(arrays[k])
@@ -276,7 +279,8 @@ class SceneBuilder:
         return len(self.textures) - 1
 
     # -- finalize ----------------------------------------------------------
-    def build(self, device="cpu") -> SceneData:
+    def build(self, device=None) -> SceneData:
+        device = resolve_device(device)
         shapes = self._inf + self._fin
         n = len(shapes)
         ptype = np.array([s[0] for s in shapes], np.int32)

@@ -13,7 +13,8 @@
 
 Mesh-dependent scenes take a mesh registry dict (mesh id -> (T, 3, 3)
 float32 vertices).  Large meshes render through the cluster structure
-(``ops.bvh.attach_clusters``).
+(``ops.bvh.attach_clusters``).  Every builder puts its tables on the
+card unless ``device`` says otherwise (``utils.device.resolve_device``).
 """
 
 from __future__ import annotations
@@ -21,10 +22,11 @@ from __future__ import annotations
 import numpy as np
 
 from wasm_pathtracer_tpu_torch.models.scene import Material, SceneBuilder, SceneData
+from wasm_pathtracer_tpu_torch.utils.device import resolve_device
 from wasm_pathtracer_tpu_torch.utils.rng import Xorshift32
 
 
-def museum(device="cpu") -> SceneData:
+def museum(device=None) -> SceneData:
     b = SceneBuilder(background=(0.0, 0.0, 0.0))
     b.add_plane((0.0, -1.0, 0.0), (0.0, 1.0, 0.0), Material.diffuse(0.7, 0.7, 0.7))
 
@@ -73,7 +75,7 @@ def _museum_lights(b: SceneBuilder, x: float, y: float, color: tuple):
         b.add_triangle(lc4, lc3, lc1, m)
 
 
-def sphere_plane(device="cpu") -> SceneData:
+def sphere_plane(device=None) -> SceneData:
     b = SceneBuilder(background=(0.1, 0.1, 0.1))
     b.add_plane((0.0, -1.0, 0.0), (0.0, 1.0, 0.0), Material.diffuse(0.8, 0.8, 0.8))
     b.add_sphere((0.0, 0.0, 5.0), 1.0, Material.diffuse(0.8, 0.2, 0.2))
@@ -83,7 +85,7 @@ def sphere_plane(device="cpu") -> SceneData:
     return b.build(device)
 
 
-def whitted(textures: dict | None = None, device="cpu") -> SceneData:
+def whitted(textures: dict | None = None, device=None) -> SceneData:
     b = SceneBuilder(background=(135.0 / 255.0, 206.0 / 255.0, 250.0 / 255.0))
     if textures and 0 in textures:
         tex_id = b.add_texture(textures[0])
@@ -122,7 +124,7 @@ _UPLOAD_SCALE = np.float32(0.5)
 _UPLOAD_SHIFT = np.array([0.0, 0.0, 5.0], np.float32)
 
 
-def bunny_high(meshes: dict | None = None, device="cpu") -> SceneData:
+def bunny_high(meshes: dict | None = None, device=None) -> SceneData:
     """Two planes, the uploaded high-poly bunny (mesh id 1) if any, and a
     two-triangle area light."""
     b = SceneBuilder(background=(0.0, 0.0, 0.0))
@@ -142,7 +144,7 @@ def bunny_high(meshes: dict | None = None, device="cpu") -> SceneData:
 
 
 def cloud(n: int, meshes: dict | None = None, mesh_id: int | None = None,
-          device="cpu") -> SceneData:
+          device=None) -> SceneData:
     """Triangle-cloud scene: :func:`triangle_cloud` of ``n`` triangles,
     or the mesh uploaded under ``mesh_id``, over a plane."""
     b = SceneBuilder(background=(0.02, 0.02, 0.04))
@@ -178,7 +180,7 @@ def surface_mesh(n: int) -> np.ndarray:
     return np.concatenate(tris, 0)
 
 
-def mesh_scene(tris: np.ndarray, device="cpu") -> SceneData:
+def mesh_scene(tris: np.ndarray, device=None) -> SceneData:
     """Ground plane, a triangle mesh and a two-triangle area light."""
     b = SceneBuilder(background=(0.05, 0.05, 0.08))
     b.add_plane((0.0, -2.0, 0.0), (0.0, 1.0, 0.0),
@@ -219,8 +221,8 @@ _REGISTRY = {
 
 
 def select_scene(scene_id: int, meshes: dict | None = None,
-                 textures: dict | None = None, device="cpu") -> SceneData:
+                 textures: dict | None = None, device=None) -> SceneData:
     """Scene registry: ids 0, 2, 3, 4, 5, 100 and 101."""
     if scene_id not in _REGISTRY:
         raise ValueError(f"Invalid scene {scene_id}")
-    return _REGISTRY[scene_id](meshes, textures, device)
+    return _REGISTRY[scene_id](meshes, textures, resolve_device(device))

@@ -10,6 +10,8 @@ import dataclasses
 
 import torch
 
+from wasm_pathtracer_tpu_torch.utils.device import resolve_device
+
 
 @dataclasses.dataclass
 class AccumBuffer:
@@ -17,7 +19,8 @@ class AccumBuffer:
     count: torch.Tensor   # (H, W) f32 samples per pixel
 
     @staticmethod
-    def create(width: int, height: int, device="cpu") -> "AccumBuffer":
+    def create(width: int, height: int, device=None) -> "AccumBuffer":
+        device = resolve_device(device)
         return AccumBuffer(
             acc=torch.zeros((height, width, 3), dtype=torch.float32, device=device),
             count=torch.zeros((height, width), dtype=torch.float32, device=device),

@@ -16,6 +16,7 @@ import torch
 
 from wasm_pathtracer_tpu_torch.ops import accum, filters
 from wasm_pathtracer_tpu_torch.utils import rng as rnglib
+from wasm_pathtracer_tpu_torch.utils.device import resolve_device
 
 _SLOT_PIXEL = 0x7FFE0000
 
@@ -97,9 +98,9 @@ def pick_pixels(buf: accum.AccumBuffer, batch: int, seed, bootstrap: bool,
 
 
 def random_pixels(batch: int, seed, x0: int, y0: int, width: int, height: int,
-                  device="cpu"):
+                  device=None):
     """Uniform pixel selection: (px, py) int64 tensors of length ``batch``."""
-    i = torch.arange(batch, dtype=torch.int64, device=device)
+    i = torch.arange(batch, dtype=torch.int64, device=resolve_device(device))
     u1, u2, _ = rnglib.uniform3(seed, i, _SLOT_PIXEL)
     px = x0 + torch.clamp((u1 * width).to(torch.int64), max=width - 1)
     py = y0 + torch.clamp((u2 * height).to(torch.int64), max=height - 1)

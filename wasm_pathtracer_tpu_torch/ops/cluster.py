@@ -27,6 +27,7 @@ from wasm_pathtracer_tpu_torch.models.scene import PrimType
 from wasm_pathtracer_tpu_torch.ops import intersect as isx
 from wasm_pathtracer_tpu_torch.ops import traverse_kernels as tk
 from wasm_pathtracer_tpu_torch.utils import vecmath as vm
+from wasm_pathtracer_tpu_torch.utils.device import resolve_device
 
 CLUSTER_SIZE = 128   # primitives per cluster (G)
 # the probe kernels' table rows: params 0-8, PrimType code, shape id
@@ -81,10 +82,11 @@ class ClusterSet:
 ARRAY_FIELDS = ("lo", "hi", "blocks", "btype", "slot_to_sid")
 
 
-def cluster_from_numpy(arrays: dict, families, device="cpu") -> ClusterSet:
+def cluster_from_numpy(arrays: dict, families, device=None) -> ClusterSet:
     """A :class:`ClusterSet` from a dict of arrays keyed by
     :data:`ARRAY_FIELDS` (e.g. the JAX package's ``ClusterSet`` read
     field by field with ``np.asarray``) and the static family tuple."""
+    device = resolve_device(device)
     lo = np.asarray(arrays["lo"], np.float32)
     hi = np.asarray(arrays["hi"], np.float32)
     blocks = np.asarray(arrays["blocks"], np.float32)
@@ -153,10 +155,11 @@ def prim_aabbs(rows: np.ndarray, ptypes: np.ndarray):
 
 
 def build_clusters(rows: np.ndarray, ptypes: np.ndarray, prim_index: np.ndarray,
-                   group: int = CLUSTER_SIZE, device="cpu") -> ClusterSet:
+                   group: int = CLUSTER_SIZE, device=None) -> ClusterSet:
     """Partition leaf-ordered finite primitives into clusters of
     ``group``: ``rows`` (T, 9) parameter rows, ``ptypes`` (T,) PrimType
     codes and ``prim_index`` (T,) shape ids, all in leaf order."""
+    device = resolve_device(device)
     rows = np.asarray(rows, np.float32)
     ptypes = np.asarray(ptypes, np.int32)
     prim_index = np.asarray(prim_index, np.int64)

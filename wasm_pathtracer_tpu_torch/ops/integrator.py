@@ -343,13 +343,17 @@ def _bounce_step(prep: tr.ScenePrep, scene: SceneData,
 
 def trace_paths(prep: tr.ScenePrep, scene: SceneData,
                 settings: RenderSettings, o, d, ray_id, seed, photon_grid=None):
-    """Trace a batch of paths to radiance, all lanes in lockstep; the
-    batch stops once every path has terminated.
+    """Trace a batch of paths to radiance, all lanes in lockstep.
 
-    The loop breaks on the host, so it has no fixed trip count; that is
-    reverse-differentiable in PyTorch as it is (the JAX package needs
-    its scan form, ``early_exit=False``, for gradients), and the bounces
-    a dead batch skips add nothing.  With
+    With ``settings.early_exit`` the batch stops once every path has
+    terminated, a host read of ``alive.any()`` after each bounce; without
+    it every bounce up to ``max_bounces`` runs and nothing waits for the
+    device (the JAX package's scan form): the host can queue a whole
+    step ahead of the card, as a CUDA graph capture of the step needs (a
+    host read inside a capture is an error).  A bounce with no live path
+    changes neither the radiance nor the cost, so both forms give the
+    same result bit for bit, and both are reverse-differentiable in
+    PyTorch.  With
     ``settings.checkpoint_bounces`` on an autograd path each bounce runs
     under ``torch.utils.checkpoint``: the backward pass recomputes it,
     its kernels included, from the carry; the pcg3d streams are keyed by
@@ -382,7 +386,7 @@ def trace_paths(prep: tr.ScenePrep, scene: SceneData,
     remat = settings.checkpoint_bounces and torch.is_grad_enabled() and (
         o.requires_grad or d.requires_grad or packed_rows.requires_grad)
     for b in range(settings.max_bounces):
-        if not bool(alive.any()):
+        if settings.early_exit and not bool(alive.any()):
             break
         carry = (o, d, tp, color, alive, hdb, absorb)
         if remat:

@@ -32,6 +32,7 @@ from wasm_pathtracer_tpu_torch.ops import intersect as isx
 from wasm_pathtracer_tpu_torch.ops import trace as tr
 from wasm_pathtracer_tpu_torch.utils import rng as rnglib
 from wasm_pathtracer_tpu_torch.utils import vecmath as vm
+from wasm_pathtracer_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -44,7 +45,8 @@ class PhotonGrid:
     _tables: tuple | None = dataclasses.field(default=None, repr=False, compare=False)
 
     @staticmethod
-    def create(num_lights: int, lo, hi, res: int = 32, device="cpu") -> "PhotonGrid":
+    def create(num_lights: int, lo, hi, res: int = 32, device=None) -> "PhotonGrid":
+        device = resolve_device(device)
         return PhotonGrid(
             bins=torch.ones((res ** 3, max(num_lights, 1)), dtype=torch.float32,
                             device=device),
@@ -67,11 +69,12 @@ class PhotonGrid:
         return self._tables
 
 
-def photon_grid_from_numpy(arrays: dict, res: int, device="cpu") -> PhotonGrid:
+def photon_grid_from_numpy(arrays: dict, res: int, device=None) -> PhotonGrid:
     """A :class:`PhotonGrid` from a dict of arrays keyed ``bins``, ``lo``,
     ``hi`` and ``num_photons`` (e.g. the JAX package's grid read field by
     field with ``np.asarray``), so both packages sample identical
     histograms."""
+    device = resolve_device(device)
     return PhotonGrid(
         bins=torch.from_numpy(np.array(arrays["bins"], np.float32)).to(device),
         lo=torch.from_numpy(np.array(arrays["lo"], np.float32)).to(device),

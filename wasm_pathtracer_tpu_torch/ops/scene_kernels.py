@@ -78,7 +78,9 @@ def build_tables(index_sets, params) -> SceneTables:
 def shape_codes(index_sets, n_shapes: int, device=None) -> torch.Tensor:
     """(N,) int32 map shape id -> ``fam << SLOT_BITS | slot`` (-2 where
     the shape is in no family; it matches no candidate).
-    ``index_sets`` are the six per-family shape-id tensors."""
+    ``index_sets`` are the six per-family shape-id tensors; the map lands
+    on ``device``, by default theirs."""
+    device = index_sets[0].device if device is None else device
     code_of = torch.full((n_shapes,), -2, dtype=torch.int32, device=device)
     for fam, idx in enumerate(index_sets):
         n = idx.shape[0]

@@ -21,7 +21,7 @@ import torch
 import torch.distributed as dist
 
 from wasm_pathtracer_tpu_torch.parallel.shard import make_ray_mesh
-from wasm_pathtracer_tpu_torch.runtime.session import resolve_device
+from wasm_pathtracer_tpu_torch.utils.device import resolve_device
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -43,7 +43,7 @@ def initialize(coordinator_address: Optional[str] = None,
     version's ``len(jax.devices())``.
     """
     if coordinator_address is not None or num_processes is not None:
-        dev = resolve_device("cuda" if device is None else device)
+        dev = resolve_device(device)
         if dev.type == "cuda":
             local = os.environ.get("LOCAL_RANK")
             torch.cuda.set_device(int(local) if local is not None

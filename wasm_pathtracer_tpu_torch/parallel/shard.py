@@ -38,7 +38,7 @@ import torch.distributed as dist
 from wasm_pathtracer_tpu_torch.config import RenderSettings
 from wasm_pathtracer_tpu_torch.models.camera import Camera
 from wasm_pathtracer_tpu_torch.ops import integrator, trace, wavefront
-from wasm_pathtracer_tpu_torch.runtime.session import resolve_device
+from wasm_pathtracer_tpu_torch.utils.device import resolve_device
 
 _M32 = 0xFFFFFFFF
 # seed offset of the k-th sample of an image or a train step (the JAX
@@ -92,7 +92,7 @@ class RayMesh:
 
 
 def _default_device() -> torch.device:
-    resolve_device("cuda")
+    resolve_device()
     local = os.environ.get("LOCAL_RANK")
     return torch.device("cuda", int(local) if local is not None
                         else torch.cuda.current_device())
@@ -413,9 +413,12 @@ def make_train_step(mesh: RayMesh, prep: trace.ScenePrep, settings: RenderSettin
 
     ``photon_grid`` trains under PNEE (its selection pdf is detached);
     ``edge_aware_screen`` renders through
-    ``ops.edges.render_pixels_edgeaware`` (needs a dense prep).
+    ``ops.edges.render_pixels_edgeaware`` (needs a dense prep).  Every
+    bounce up to ``max_bounces`` runs (``early_exit=False``, as in the
+    JAX version), so a step reads nothing back before its backward.
     """
     _check_prep(prep, train_lights, train_camera, edge_aware_screen)
+    settings = settings.replace(early_exit=False)
     return TrainStep(mesh, prep, settings, width, height, lr, spp, train_lights,
                      train_materials, train_camera, optimizer, photon_grid,
                      edge_aware_screen)

@@ -102,8 +102,8 @@ def main(argv=None):
                               is_debug_photons=args.light_debug,
                               max_bounces=args.max_bounces, **kw)
 
-    camera = Camera.create(args.camera[:3], args.camera[3],
-                           args.camera[4]) if args.camera else None
+    camera = Camera.create(args.camera[:3], args.camera[3], args.camera[4],
+                           device=args.device) if args.camera else None
     sess = Session(width, height, args.scene, camera=camera,
                    left=settings(args.left_type, args.left_adaptive),
                    right=settings(args.right_type, args.right_adaptive),

@@ -6,6 +6,9 @@ compute step draws a batch of pixels, uniformly at random or by the
 variance-guided allocator (``settings.adaptive``), and path-traces them
 through the regenerating wavefront: ``integrator.render_queue``, or
 ``wavefront.render_queue_flat`` when the scene has a cluster structure.
+With ``use_regen`` or ``early_exit`` off it renders one sample a picked
+pixel through ``integrator.render_pixels`` instead, as the JAX session
+does.
 A PNEE instance first spends its ticks on photons, ``photons_per_tick``
 a tick, until its grid holds ``total_photons``.  Finite families of at
 least ``bvh_min_triangles`` shapes are clustered (every finite family
@@ -23,6 +26,7 @@ from wasm_pathtracer_tpu_torch.models.camera import Camera, initial_camera
 from wasm_pathtracer_tpu_torch.ops import (accum, adaptive, bvh, integrator,
                                            photon, trace, wavefront)
 from wasm_pathtracer_tpu_torch.utils import rng as rnglib
+from wasm_pathtracer_tpu_torch.utils.device import resolve_device
 from wasm_pathtracer_tpu_torch.utils.png import tonemap_u8
 
 
@@ -31,16 +35,6 @@ def fold_seed(seed: int, round_: int) -> int:
     x, _, _ = rnglib._pcg3d(int(seed) & 0xFFFFFFFF, int(round_) & 0xFFFFFFFF,
                             0x9E3779B9)
     return x
-
-
-def resolve_device(device) -> torch.device:
-    """The device to render on; asking for CUDA without a card raises
-    (a render never moves to the CPU on its own)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA device requested but torch.cuda.is_available() "
-                           "is False")
-    return dev
 
 
 class RenderInstance:
@@ -91,11 +85,13 @@ class RenderInstance:
             if ticks_left <= 0:
                 return 0
 
+        use_regen = st.use_regen and st.early_exit
         # lanes capped at a quarter of the batch (the session's queue is
         # one batch, so a wide wavefront pays its drain tail every step);
         # an explicit smaller regen_lanes is honoured
         lanes = min(st.regen_lanes, batch, max(1024, batch // 4))
         # decorrelates the halves' RNG streams under the same round seed
+        # (the per-pixel route keys a path by its pixel, as in JAX)
         rid_base = 0x40000000 if self.x0 > 0 or self.y0 > 0 else 0
         use_flat = s.prep.cluster is not None and st.use_flat_wavefront is not False
         queue_fn = wavefront.render_queue_flat if use_flat else integrator.render_queue
@@ -117,10 +113,17 @@ class RenderInstance:
             else:
                 px, py = adaptive.random_pixels(batch, seed, self.x0, self.y0,
                                                 self.width, self.height, s.device)
-            acc_s, cnt_s, cost = queue_fn(
-                s.prep, s.scene, st, s.camera, py * W + px, W, H, seed,
-                lanes, photon_grid=self.photon_grid, rid_base=rid_base)
-            accum.write_sums(s.buffer, acc_s, cnt_s)
+            if use_regen:
+                acc_s, cnt_s, cost = queue_fn(
+                    s.prep, s.scene, st, s.camera, py * W + px, W, H, seed,
+                    lanes, photon_grid=self.photon_grid, rid_base=rid_base)
+                accum.write_sums(s.buffer, acc_s, cnt_s)
+            else:
+                with torch.no_grad():
+                    col, cost = integrator.render_pixels(
+                        s.prep, s.scene, st, s.camera, px, py, W, H, seed,
+                        photon_grid=self.photon_grid)
+                accum.write_samples(s.buffer, px, py, col)
             costs.append(cost.sum())
             self.round += 1
             traced += batch
@@ -172,7 +175,7 @@ class Session:
                  right: RenderSettings | None = None,
                  seed: int = 0xBABABEBE,
                  use_bvh: bool | None = None,
-                 device="cuda"):
+                 device=None):
         self.device = resolve_device(device)
         self.width, self.height = width, height
         self.seed = seed
@@ -180,7 +183,8 @@ class Session:
         self.meshes: dict[int, np.ndarray] = {}
         self.textures: dict[int, np.ndarray] = {}
         self._load_scene(scene_id)
-        self.camera = (camera or initial_camera(scene_id)).to(self.device)
+        self.camera = (initial_camera(scene_id, self.device) if camera is None
+                       else camera.to(self.device))
         self.buffer = accum.AccumBuffer.create(width, height, self.device)
         self._clear_density()
         left = left or RenderSettings(render_type=RenderType.NORMAL_NEE)
