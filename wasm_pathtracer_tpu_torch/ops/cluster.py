@@ -28,6 +28,7 @@ from wasm_pathtracer_tpu_torch.ops import intersect as isx
 from wasm_pathtracer_tpu_torch.ops import traverse_kernels as tk
 from wasm_pathtracer_tpu_torch.utils import vecmath as vm
 from wasm_pathtracer_tpu_torch.utils.device import resolve_device
+from wasm_pathtracer_tpu_torch.utils.spans import span
 
 CLUSTER_SIZE = 128   # primitives per cluster (G)
 # the probe kernels' table rows: params 0-8, PrimType code, shape id
@@ -296,8 +297,9 @@ def trace_clusters(cs: ClusterSet, o, d, t_init):
     while True:
         e, c = torch.min(ent, dim=1)                      # first minimum
         active = e < t_best
-        if not bool(active.any()):
-            break
+        with span("sync.cluster_active"):
+            if not bool(active.any()):
+                break
         rounds += active
         if cs.unreduced_probe:
             t = probe_kernels.probe_blocks(cs, o, d, c.to(torch.int32))

@@ -46,6 +46,7 @@ from wasm_pathtracer_tpu_torch.ops import intersect as isx
 from wasm_pathtracer_tpu_torch.ops import trace as tr
 from wasm_pathtracer_tpu_torch.utils import rng as rnglib
 from wasm_pathtracer_tpu_torch.utils import vecmath as vm
+from wasm_pathtracer_tpu_torch.utils.spans import span
 
 # RNG slot layout: slots [b*8, b*8+8) belong to bounce b; SLOT_JITTER is
 # the pixel jitter of a primary ray.
@@ -321,22 +322,25 @@ def _bounce_step(prep: tr.ScenePrep, scene: SceneData,
     On an autograd path ``trace.trace_scene`` re-evaluates the winners'
     distances; the occlusion verdict is discrete and taken on detached
     rays."""
-    t, sid, hit, c = tr.trace_scene(prep, scene, o, d)
-    step_cost = torch.where(alive, c, 0)
-    carry, shadow_req = _shade_core(
-        scene, settings, light_tab, o, d, throughput, color, alive, hdb,
-        absorb, slot0, ray_id, seed, t, sid, hit, packed_rows=packed_rows,
-        photon_grid=photon_grid, prep=prep)
+    with span("trace"):
+        t, sid, hit, c = tr.trace_scene(prep, scene, o, d)
+        step_cost = torch.where(alive, c, 0)
+    with span("shade"):
+        carry, shadow_req = _shade_core(
+            scene, settings, light_tab, o, d, throughput, color, alive, hdb,
+            absorb, slot0, ray_id, seed, t, sid, hit, packed_rows=packed_rows,
+            photon_grid=photon_grid, prep=prep)
     if shadow_req is not None:
         o2, d2, tp2, color2, alive2, hdb2, absorb2 = carry
-        with torch.no_grad():
+        with span("trace"), torch.no_grad():
             occluded, sc = tr.shadow_ray(prep, scene,
                                          shadow_req["p_from"].detach(),
                                          shadow_req["p_to"].detach(),
                                          shadow_req["light_sid"],
                                          settings.epsilon)
-        step_cost = step_cost + torch.where(shadow_req["need"], sc, 0)
-        color2 = _apply_shadow(color2, shadow_req, occluded)
+            step_cost = step_cost + torch.where(shadow_req["need"], sc, 0)
+        with span("shade"):
+            color2 = _apply_shadow(color2, shadow_req, occluded)
         carry = (o2, d2, tp2, color2, alive2, hdb2, absorb2)
     return carry, step_cost
 
@@ -386,8 +390,10 @@ def trace_paths(prep: tr.ScenePrep, scene: SceneData,
     remat = settings.checkpoint_bounces and torch.is_grad_enabled() and (
         o.requires_grad or d.requires_grad or packed_rows.requires_grad)
     for b in range(settings.max_bounces):
-        if settings.early_exit and not bool(alive.any()):
-            break
+        if settings.early_exit:
+            with span("sync.paths_alive"):
+                if not bool(alive.any()):
+                    break
         carry = (o, d, tp, color, alive, hdb, absorb)
         if remat:
             carry, step_cost = torch.utils.checkpoint.checkpoint(
@@ -414,7 +420,8 @@ def render_pixels(prep, scene, settings: RenderSettings, camera: Camera,
 
 def render_queue(prep, scene, settings: RenderSettings, camera: Camera,
                  pix_queue, width: int, height: int, seed, n_lanes: int,
-                 photon_grid=None, rid_base=0, return_iters=False):
+                 photon_grid=None, rid_base=0, return_iters=False,
+                 iters_out=None):
     """Persistent wavefront: path-trace every sample in ``pix_queue``.
 
     Each of ``n_lanes`` lanes owns one in-flight path; when a path
@@ -440,6 +447,8 @@ def render_queue(prep, scene, settings: RenderSettings, camera: Camera,
       photon_grid: optional ``ops.photon.PhotonGrid`` for PNEE.
       rid_base: offset added to the queue index when keying each path's
         RNG stream (decorrelates the session's two halves).
+      iters_out: a list the number of loop iterations is appended to,
+        the return left as it is (``return_iters`` adds it to the return).
 
     Returns (color_sum (H*W, 3), n_samples (H*W,) int32, lane_cost
     (n_lanes,) int64 per-lane primitive-test counts), plus the number of
@@ -456,6 +465,8 @@ def render_queue(prep, scene, settings: RenderSettings, camera: Camera,
     lane_cost = torch.zeros((B,), dtype=torch.int64, device=dev)
 
     def _ret(its):
+        if iters_out is not None:
+            iters_out.append(its)
         out = (acc[:HW], cnt[:HW], lane_cost)
         return out + (its,) if return_iters else out
 
@@ -497,49 +508,54 @@ def render_queue(prep, scene, settings: RenderSettings, camera: Camera,
     k_lane = torch.zeros((B,), dtype=torch.int64, device=dev)
     it = 0
 
-    while bool(alive.any()):
-        was = alive
-        (o, d, tp, col, alive, hdb, absorb), step_cost = _bounce_step(
-            prep, scene, settings, light_tab, o, d, tp, col, was, hdb,
-            absorb, bounce * _SLOTS_PER_BOUNCE, rid, seed,
-            packed_rows=packed_rows, photon_grid=photon_grid)
-        lane_cost += step_cost
-        bounce = bounce + 1
+    while True:
+        with span("sync.queue_alive"):
+            if not bool(alive.any()):
+                break
+        with span("queue.iter"):
+            was = alive
+            (o, d, tp, col, alive, hdb, absorb), step_cost = _bounce_step(
+                prep, scene, settings, light_tab, o, d, tp, col, was, hdb,
+                absorb, bounce * _SLOTS_PER_BOUNCE, rid, seed,
+                packed_rows=packed_rows, photon_grid=photon_grid)
+            lane_cost += step_cost
+            bounce = bounce + 1
 
-        # a path is done when it died this step or hit the bounce cap
-        done = was & (~alive | (bounce >= settings.max_bounces))
-        alive = alive & ~done
+            with span("regen"):
+                # a path is done when it died this step or hit the bounce cap
+                done = was & (~alive | (bounce >= settings.max_bounces))
+                alive = alive & ~done
 
-        # add finished paths to the frame
-        dst = torch.where(done, pid, HW)
-        acc.index_add_(0, dst, col)
-        cnt.index_add_(0, dst, done.to(torch.int32))
-        k_lane = k_lane + done
+                # add finished paths to the frame
+                dst = torch.where(done, pid, HW)
+                acc.index_add_(0, dst, col)
+                cnt.index_add_(0, dst, done.to(torch.int32))
+                k_lane = k_lane + done
 
-        # regenerate: finished lanes with capacity left claim the next
-        # queue slots in lane order
-        claimable = done & (k_lane < K)
-        ranks = torch.cumsum(claimable, 0) - 1
-        sidx = issued + ranks
-        can = claimable & (sidx < S)
-        # the JAX version's dynamic slice of B entries at the claim
-        # cursor, then a rank-indexed pick, as one gather
-        pick = torch.clamp(issued, max=S) + torch.clamp(ranks, 0, B - 1)
-        pid_n = torch.clamp(pixq_pad[pick], max=HW)
-        rid_n, o_n, d_n = ray_of(pid_n, sidx)
-        issued = torch.clamp(issued + ranks[-1] + 1, max=S)
+                # regenerate: finished lanes with capacity left claim the next
+                # queue slots in lane order
+                claimable = done & (k_lane < K)
+                ranks = torch.cumsum(claimable, 0) - 1
+                sidx = issued + ranks
+                can = claimable & (sidx < S)
+                # the JAX version's dynamic slice of B entries at the claim
+                # cursor, then a rank-indexed pick, as one gather
+                pick = torch.clamp(issued, max=S) + torch.clamp(ranks, 0, B - 1)
+                pid_n = torch.clamp(pixq_pad[pick], max=HW)
+                rid_n, o_n, d_n = ray_of(pid_n, sidx)
+                issued = torch.clamp(issued + ranks[-1] + 1, max=S)
 
-        can3 = can[:, None]
-        o = torch.where(can3, o_n, o)
-        d = torch.where(can3, d_n, d)
-        tp = torch.where(can3, 1.0, tp)
-        col = torch.where(can3, 0.0, col)
-        alive = alive | can
-        hdb = hdb & ~can
-        absorb = torch.where(can3, 0.0, absorb)
-        bounce = torch.where(can, 0, bounce)
-        pid = torch.where(can, pid_n, pid)
-        rid = torch.where(can, rid_n, rid)
+                can3 = can[:, None]
+                o = torch.where(can3, o_n, o)
+                d = torch.where(can3, d_n, d)
+                tp = torch.where(can3, 1.0, tp)
+                col = torch.where(can3, 0.0, col)
+                alive = alive | can
+                hdb = hdb & ~can
+                absorb = torch.where(can3, 0.0, absorb)
+                bounce = torch.where(can, 0, bounce)
+                pid = torch.where(can, pid_n, pid)
+                rid = torch.where(can, rid_n, rid)
         it += 1
     return _ret(it)
 

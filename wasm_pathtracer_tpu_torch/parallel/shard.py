@@ -39,6 +39,7 @@ from wasm_pathtracer_tpu_torch.config import RenderSettings
 from wasm_pathtracer_tpu_torch.models.camera import Camera
 from wasm_pathtracer_tpu_torch.ops import integrator, trace, wavefront
 from wasm_pathtracer_tpu_torch.utils.device import resolve_device
+from wasm_pathtracer_tpu_torch.utils.spans import span
 
 _M32 = 0xFFFFFFFF
 # seed offset of the k-th sample of an image or a train step (the JAX
@@ -365,10 +366,12 @@ class TrainStep:
                     leaves[k].copy_(x)
         frozen_camera = Camera(camera.location.detach(), camera.rot_x.detach(),
                                camera.rot_y.detach())
-        sc, cam = self._with(scene.detach(), frozen_camera, leaves)
-        loss = self._loss(prep, sc, cam, target, seed)
+        with span("train.forward"):
+            sc, cam = self._with(scene.detach(), frozen_camera, leaves)
+            loss = self._loss(prep, sc, cam, target, seed)
         names = list(leaves)
-        grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, [leaves[k] for k in names])
         # every rank applies the same update to the same summed gradients,
         # so the leaves stay equal across ranks without a broadcast
         *grads, loss = self._all_reduce(list(grads) + [loss.detach()])

@@ -180,6 +180,7 @@ def main(argv=None):
             "unit": "paths/s",
             "device": kind,
             "bvh_visits": sess.num_bvh_hits,
+            "queue_iters": sess.num_queue_iters,
             "paths": traced,
             "seconds": dt,
         }))

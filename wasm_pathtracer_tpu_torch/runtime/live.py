@@ -195,6 +195,7 @@ class LiveSession:
                     width=self.session.width, height=self.session.height,
                     scene=self.session.scene_id,
                     bvh_visits=self.session.num_bvh_hits,
+                    queue_iters=self.session.num_queue_iters,
                     pan_x=self.pan_x, pan_y=self.pan_y)
 
 

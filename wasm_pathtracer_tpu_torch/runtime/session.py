@@ -28,6 +28,7 @@ from wasm_pathtracer_tpu_torch.ops import (accum, adaptive, bvh, integrator,
 from wasm_pathtracer_tpu_torch.utils import rng as rnglib
 from wasm_pathtracer_tpu_torch.utils.device import resolve_device
 from wasm_pathtracer_tpu_torch.utils.png import tonemap_u8
+from wasm_pathtracer_tpu_torch.utils.spans import span
 
 
 def fold_seed(seed: int, round_: int) -> int:
@@ -62,7 +63,8 @@ class RenderInstance:
     def _photons_done(self) -> bool:
         if self.photon_grid is None:
             return True
-        return int(self.photon_grid.num_photons) >= self.settings.total_photons
+        with span("sync.photons_done"):
+            return int(self.photon_grid.num_photons) >= self.settings.total_photons
 
     # -- ray compute -------------------------------------------------------
     def compute(self, num_ticks: int) -> int:
@@ -98,42 +100,51 @@ class RenderInstance:
         traced = 0
         costs = []
         last_density = None
+        half = "right" if rid_base else "left"
+        route = "per_pixel" if not use_regen else "flat" if use_flat else "queue"
         while ticks_left > 0:
-            seed = fold_seed(s.seed, self.round)
-            if st.adaptive:
-                # the bootstrap decision comes from the host's own ledger
-                # of paths traced: reading the buffer would wait for the
-                # device every batch
-                bootstrap = (self._rays_traced / max(self.width * self.height, 1)
-                             < st.adaptive_bootstrap_spp)
-                px, py, density, self._sweep = adaptive.pick_pixels(
-                    s.buffer, batch, seed, bootstrap, st.adaptive_spp_scale,
-                    self.x0, self.y0, self.width, self.height, sweep_pos=self._sweep)
-                last_density = (density, bootstrap)
-            else:
-                px, py = adaptive.random_pixels(batch, seed, self.x0, self.y0,
-                                                self.width, self.height, s.device)
-            if use_regen:
-                acc_s, cnt_s, cost = queue_fn(
-                    s.prep, s.scene, st, s.camera, py * W + px, W, H, seed,
-                    lanes, photon_grid=self.photon_grid, rid_base=rid_base)
-                accum.write_sums(s.buffer, acc_s, cnt_s)
-            else:
-                with torch.no_grad():
-                    col, cost = integrator.render_pixels(
-                        s.prep, s.scene, st, s.camera, px, py, W, H, seed,
-                        photon_grid=self.photon_grid)
-                accum.write_samples(s.buffer, px, py, col)
-            costs.append(cost.sum())
-            self.round += 1
-            traced += batch
-            self._rays_traced += batch
-            ticks_left -= batch
+            with span("session.batch", {"half": half, "round": self.round, "route": route}):
+                seed = fold_seed(s.seed, self.round)
+                with span("session.pick"):
+                    if st.adaptive:
+                        # the bootstrap decision comes from the host's own ledger
+                        # of paths traced: reading the buffer would wait for the
+                        # device every batch
+                        bootstrap = (self._rays_traced / max(self.width * self.height, 1)
+                                     < st.adaptive_bootstrap_spp)
+                        px, py, density, self._sweep = adaptive.pick_pixels(
+                            s.buffer, batch, seed, bootstrap, st.adaptive_spp_scale,
+                            self.x0, self.y0, self.width, self.height, sweep_pos=self._sweep)
+                        last_density = (density, bootstrap)
+                    else:
+                        px, py = adaptive.random_pixels(batch, seed, self.x0, self.y0,
+                                                        self.width, self.height, s.device)
+                if use_regen:
+                    its = []
+                    with span("queue"):
+                        acc_s, cnt_s, cost = queue_fn(
+                            s.prep, s.scene, st, s.camera, py * W + px, W, H, seed,
+                            lanes, photon_grid=self.photon_grid, rid_base=rid_base,
+                            iters_out=its)
+                    self.num_queue_iters += sum(its)
+                    accum.write_sums(s.buffer, acc_s, cnt_s)
+                else:
+                    with span("queue"), torch.no_grad():
+                        col, cost = integrator.render_pixels(
+                            s.prep, s.scene, st, s.camera, px, py, W, H, seed,
+                            photon_grid=self.photon_grid)
+                    accum.write_samples(s.buffer, px, py, col)
+                costs.append(cost.sum())
+                self.round += 1
+                traced += batch
+                self._rays_traced += batch
+                ticks_left -= batch
         if last_density is not None:
             s.write_density(self.x0, self.y0, *last_density)
         # one host read per compute() call, in int64
         if costs:
-            self.num_bvh_hits += int(torch.stack(costs).sum())
+            with span("sync.cost"):
+                self.num_bvh_hits += int(torch.stack(costs).sum())
         return traced
 
     def round_samples(self) -> float:
@@ -146,6 +157,7 @@ class RenderInstance:
     def reset(self):
         """Start the render over; the photons are kept."""
         self.num_bvh_hits = 0
+        self.num_queue_iters = 0    # regenerating-queue loop iterations
         self.round = 0
         self._rays_traced = 0
         self._sweep = None   # adaptive floor-sweep position (device scalar)
@@ -217,8 +229,12 @@ class Session:
         """Paint a region of the sampling-density view from its scaled
         error (blue throughout while the region bootstraps)."""
         h, w = density.shape
-        self.density[y0:y0 + h, x0:x0 + w] = (0.0, 0.0, 1.0) if bootstrap else \
-            accum.mix_color(density).cpu().numpy()
+        if bootstrap:
+            self.density[y0:y0 + h, x0:x0 + w] = (0.0, 0.0, 1.0)
+            return
+        rgb = accum.mix_color(density)
+        with span("sync.density"):
+            self.density[y0:y0 + h, x0:x0 + w] = rgb.cpu().numpy()
 
     def compute(self, num_samples: int) -> int:
         """Ticks split between the halves; returns paths traced."""
@@ -229,9 +245,13 @@ class Session:
 
     def results(self, show_sampling: bool = False) -> np.ndarray:
         """(H, W, 3) uint8 frame, or the sampling-density view."""
-        if show_sampling:
-            return tonemap_u8(self.density)
-        return tonemap_u8(accum.clamped_image(self.buffer).cpu().numpy())
+        with span("session.results"):
+            if show_sampling:
+                return tonemap_u8(self.density)
+            img = accum.clamped_image(self.buffer)
+            with span("sync.readout"):
+                img = img.cpu().numpy()
+            return tonemap_u8(img)
 
     def image(self) -> np.ndarray:
         """Raw mean-radiance float image."""
@@ -295,3 +315,9 @@ class Session:
     def num_bvh_hits(self) -> int:
         """Total primitive tests so far."""
         return self.left.num_bvh_hits + self.right.num_bvh_hits
+
+    @property
+    def num_queue_iters(self) -> int:
+        """Regenerating-queue loop iterations so far (a host count; the
+        per-pixel route adds none)."""
+        return self.left.num_queue_iters + self.right.num_queue_iters
