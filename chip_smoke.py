@@ -220,6 +220,21 @@ its last line):
     after and steps/s.  Phase 24 (``train``) also times the museum step
     with every bounce (``early_exit=False``, what ``make_train_step``
     builds) against the host's early exit, in turns, losses bit-equal.
+34. The shade kernel (``shade``): ``fused_shade`` against the eager
+    ``_shade_core`` bit for bit (every lane of every output, NaN equal
+    to NaN), then both timed as the kernels above, first on the
+    arguments of the shade kernel's call ``HEADLINE_CALL`` in the main
+    path's run (16,384 lanes, recorded by ``headline_inputs``), then on
+    those of the sixth call of each half of a 512x512 museum session
+    (the left half's uniform NEE, then the right half's PNEE after its
+    300,000 photons; 8,192 lanes) and the same lanes four times over
+    (32,768).
+
+The shade kernel is counted with the others wherever launches are:
+once per iteration in every queue loop, at least once in the sessions
+and the renders outside autograd, never in a gradient or train step
+(the autograd path shades eagerly).  Phase 5's trace must hold its
+``wpt_shade_kernel`` as often as the wrapper counted launches.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 call that was timed: the larger of its bytes (each input and output
@@ -247,7 +262,9 @@ included (42-57 s of it are the four CLI processes); phases 22-25 add
 about 45 s, phases 26-29 about 60 s (33 s of it the four CLI processes),
 phase 30 56-70 s; the whole script 282 s of command time.  Phases 31-33
 add about 2.5 min (their first run: 1.5 s, 99.6 s of which 78 s were the
-two CPU sessions, before scene 4's CPU batch was halved, and 40.9 s).
+two CPU sessions, before scene 4's CPU batch was halved, and 40.9 s);
+phase 34 about 1 s, and the whole script 319 s with the shade kernel on
+the main path.
 """
 
 from __future__ import annotations
@@ -529,17 +546,27 @@ KERNELS = (
     ("dense_tri_nearest", "wasm_pathtracer_tpu/ops/traverse_pallas.py:117",
      "wasm_pathtracer_tpu_torch/csrc/traverse_kernels.cu"),
 )
+# the shade kernel replaces the eager shading, no TPU kernel
+SHADE_KERNEL = ("fused_shade", None, "wasm_pathtracer_tpu_torch/csrc/shade_kernels.cu")
+# float32 operations of one lane of the shade kernel, counted as FLOPS
+# counts (the worst normal, a torus: 40; the BSDF branches and the
+# tangent frame: ~170; the light point, its weight and the outputs: ~140),
+# plus, with PNEE, the grid cell (21), the CDF count (one compare a light)
+# and the eight neighbours (64)
+SHADE_FLOPS, SHADE_PNEE_FLOPS = 350, 85
 
 
 def wrappers():
-    """Kernel wrapper of each name in ``KERNELS``."""
+    """Kernel wrapper of each name in ``KERNELS`` and of ``SHADE_KERNEL``."""
     from wasm_pathtracer_tpu_torch.ops import probe_kernels as pk
     from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
+    from wasm_pathtracer_tpu_torch.ops import shade_kernels as shk
     from wasm_pathtracer_tpu_torch.ops import traverse_kernels as tk
     return {"fused_nearest": sk.fused_nearest, "fused_occluded": sk.fused_occluded,
             "select_scan": pk.select_scan, "probe_pair": pk.probe_pair,
             "probe_min": pk.probe_min, "select_blocks": pk.select_blocks,
-            "probe_blocks": pk.probe_blocks, "dense_tri_nearest": tk.dense_tri_nearest}
+            "probe_blocks": pk.probe_blocks, "dense_tri_nearest": tk.dense_tri_nearest,
+            "fused_shade": shk.fused_shade}
 
 
 def reset_counts():
@@ -737,25 +764,29 @@ def recorded_calls(module, which):
 
 @functools.cache
 def headline_inputs(device):
-    """{wrapper name: its arguments} of call ``HEADLINE_CALL`` of K1 and of
-    K2 in one run of the main path (the museum headline)."""
+    """{wrapper name: its arguments} of call ``HEADLINE_CALL`` of K1, of
+    K2 and of the shade kernel in one run of the main path (the museum
+    headline)."""
     import torch
     from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
     from wasm_pathtracer_tpu_torch.models import scenes
     from wasm_pathtracer_tpu_torch.models.camera import initial_camera
     from wasm_pathtracer_tpu_torch.ops import integrator, trace
     from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
+    from wasm_pathtracer_tpu_torch.ops import shade_kernels as shk
     h = HEADLINE
     scene = scenes.museum(device)
     prep = trace.prepare(scene)
     st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=h["max_bounces"])
     which = {"fused_nearest": HEADLINE_CALL, "fused_occluded": HEADLINE_CALL}
-    with recorded_calls(sk, which) as got:
+    with recorded_calls(sk, which) as got, \
+            recorded_calls(shk, {"fused_shade": HEADLINE_CALL}) as got_shade:
         integrator.render_queue(prep, scene, st, initial_camera(0, device),
                                 headline_queue(device, h["S"]), h["width"], h["height"],
                                 4, h["B"])
         torch.cuda.synchronize()
-    if set(got) != set(which):
+    got.update(got_shade)
+    if set(got) != set(which) | {"fused_shade"}:
         raise AssertionError(f"the headline run made fewer than {HEADLINE_CALL + 1} calls")
     return got
 
@@ -1078,8 +1109,8 @@ def phase_main_path(device, record):
     prep, cam = trace.prepare(scene), initial_camera(0, device)
     launches, iters, rec = run_queue("main path: museum", integrator.render_queue,
                                      prep, scene, st, cam, h, device)
-    expect_launches(launches, iters, ("fused_nearest", "fused_occluded"))
-    for name in ("fused_nearest", "fused_occluded"):
+    expect_launches(launches, iters, ("fused_nearest", "fused_occluded", "fused_shade"))
+    for name in ("fused_nearest", "fused_occluded", "fused_shade"):
         record.setdefault(name, {})["launches"] = launches[name]
     # device kernels per iteration, and the device's busy share, in a short run
     short = headline_queue(device, 8 * h["B"])
@@ -1088,7 +1119,8 @@ def phase_main_path(device, record):
         lambda: short_iters.append(integrator.render_queue(
             prep, scene, st, cam, short, h["width"], h["height"], 3, h["B"],
             return_iters=True)[3]),
-        {"fused_nearest": "fused_nearest_kernel", "fused_occluded": "fused_occluded_kernel"})
+        {"fused_nearest": "fused_nearest_kernel", "fused_occluded": "fused_occluded_kernel",
+         "fused_shade": "wpt_shade_kernel"})
     rec["kernels_per_iteration"] = n_kernels / short_iters[-1]
     log(f"main path: {rec['kernels_per_iteration']:.1f} device kernels per iteration "
         f"({short_iters[-1]} iterations, S={short.numel()}), device busy "
@@ -1577,7 +1609,7 @@ def phase_mesh_path(device, record):
         f"mesh path: mesh70k ({scene.num_shapes} shapes, C={prep.cluster.num_clusters}, "
         f"dense {sum(prep.tables.counts)})", wavefront.render_queue_flat, prep, scene, st,
         mesh_camera(device), h, device)
-    expect_launches(launches, iters, ("select_scan", "probe_pair"))
+    expect_launches(launches, iters, ("select_scan", "probe_pair", "fused_shade"))
     for name in ("select_scan", "probe_pair"):
         record.setdefault(name, {})["launches"] = launches[name]
     record["mesh_path"] = rec
@@ -1628,7 +1660,8 @@ def phase_lockstep(device, record):
     torch.cuda.synchronize()
     launches = read_counts()
     log(f"lockstep mesh70k {W}x{H}: {iters} iterations, launches {launches}")
-    expect_launches(launches, iters, at_least_once=("fused_nearest", "probe_min"))
+    expect_launches(launches, iters, ("fused_shade",),
+                    at_least_once=("fused_nearest", "probe_min"))
     record.setdefault("probe_min", {})["launches"] = launches["probe_min"]
     flat = wavefront.render_queue_flat(prep, scene, st, mesh_camera(device), pix, W, H,
                                        SEED, 1024)
@@ -1644,7 +1677,8 @@ def phase_lockstep(device, record):
     torch.cuda.synchronize()
     launches7 = read_counts()
     log(f"lockstep with the unreduced probe: {iters7} iterations, launches {launches7}")
-    expect_launches(launches7, iters7, at_least_once=("fused_nearest", "probe_blocks"))
+    expect_launches(launches7, iters7, ("fused_shade",),
+                    at_least_once=("fused_nearest", "probe_blocks"))
     if launches7["probe_blocks"] != launches["probe_min"] or iters7 != iters:
         raise AssertionError("the unreduced probe should run the reduced probe's rounds")
     record.setdefault("probe_blocks", {})["launches"] = launches7["probe_blocks"]
@@ -1671,7 +1705,8 @@ def phase_k6_path(device, record):
     launches = read_counts()
     log(f"K6 path: museum clustered ({sum(prep.tables.counts)} dense, "
         f"C={prep.cluster.num_clusters}) {W}x{H}: {iters} iterations, launches {launches}")
-    expect_launches(launches, iters, ("select_blocks", "fused_nearest", "probe_pair"))
+    expect_launches(launches, iters, ("select_blocks", "fused_nearest", "probe_pair",
+                                      "fused_shade"))
     record.setdefault("select_blocks", {})["launches"] = launches["select_blocks"]
     ref = integrator.render_queue(trace.prepare(scene), scene, st, cam, pix, W, H,
                                   SEED, 1024)
@@ -1692,7 +1727,7 @@ def phase_sweep_path(device, record):
         f"dense-sweep path: mesh70k ({prep.tri_rows.shape[0]} triangles swept, "
         f"{sum(prep.tables.counts)} shapes in K1's tables)",
         integrator.render_queue, prep, scene, st, cam, h, device)
-    expect_launches(launches, iters,
+    expect_launches(launches, iters, ("fused_shade",),
                     twice_per_iteration=("dense_tri_nearest", "fused_nearest"))
     record.setdefault("dense_tri_nearest", {})["launches"] = launches["dense_tri_nearest"]
     short = headline_queue(device, 8 * h["B"])
@@ -1742,7 +1777,8 @@ def phase_bvh4(device, record):
     torch.cuda.synchronize()
     t_bvh = time.perf_counter() - t0
     launches = read_counts()
-    expect_launches(launches, out_b[3], twice_per_iteration=("fused_nearest",))
+    expect_launches(launches, out_b[3], ("fused_shade",),
+                    twice_per_iteration=("fused_nearest",))
     t0 = time.perf_counter()
     out_s = integrator.render_queue(prep_sweep, scene, st, cam, pix, W, H, SEED, 1024)
     torch.cuda.synchronize()
@@ -1790,7 +1826,7 @@ def phase_pnee(device, record):
     launches, iters, rec = run_queue("museum PNEE", integrator.render_queue, prep, scene,
                                      st, initial_camera(0, device), h, device,
                                      photon_grid=grid)
-    expect_launches(launches, iters, ("fused_nearest", "fused_occluded"))
+    expect_launches(launches, iters, ("fused_nearest", "fused_occluded", "fused_shade"))
     rec.update(photons_landed_per_sec=landed / dt, photons_shot_per_sec=shots / dt)
     record["pnee_path"] = rec
 
@@ -1841,7 +1877,8 @@ def phase_adaptive(device, record):
         raise AssertionError("the adaptive allocator did not take over")
     if not bool(torch.isfinite(sess.buffer.acc).all()):
         raise AssertionError("non-finite radiance")
-    expect_launches(launches, 0, at_least_once=("fused_nearest", "fused_occluded"))
+    expect_launches(launches, 0, at_least_once=("fused_nearest", "fused_occluded",
+                                                "fused_shade"))
     record["adaptive_1080p"] = dict(paths_per_sec=traced / dt, seconds=dt,
                                     bootstrap_paths_per_sec=2 * n_boot * batch / t_boot,
                                     excess_mass=excess)
@@ -2693,7 +2730,8 @@ def phase_live(device, record):
         raise AssertionError("live: the server thread did not stop")
     if final["total_ticks"] <= 0:
         raise AssertionError("live: the ticks did not grow")
-    expect_launches(launches, 0, at_least_once=("fused_nearest", "fused_occluded"))
+    expect_launches(launches, 0, at_least_once=("fused_nearest", "fused_occluded",
+                                                "fused_shade"))
 
 
 def phase_cli_runtime(device, record):
@@ -2825,12 +2863,12 @@ def phase_shard(device, record):
         prep, cam = trace.prepare(scene), initial_camera(0, device)
         rec["museum"] = sharded_against_unsharded(
             "museum headline", integrator.render_queue, render_queue_sharded, mesh, prep,
-            scene, st, cam, h, device, ("fused_nearest", "fused_occluded"))
+            scene, st, cam, h, device, ("fused_nearest", "fused_occluded", "fused_shade"))
         mscene, mprep = mesh70k(device)
         rec["mesh70k_flat"] = sharded_against_unsharded(
             "mesh70k flat", wavefront.render_queue_flat, render_queue_flat_sharded, mesh,
             mprep, mscene, st, mesh_camera(device), MESH, device,
-            ("select_scan", "probe_pair"))
+            ("select_scan", "probe_pair", "fused_shade"))
 
         # the frame: render_image_sharded against render_pixels
         W, H = h["width"], h["height"]
@@ -2844,7 +2882,8 @@ def phase_shard(device, record):
             f"{dt1:.3f} s, bit-equal {torch.equal(img, want)}, launches {l1} ({l0})")
         if not torch.equal(img, want) or l0 != l1:
             raise AssertionError("shard: the sharded frame differs from render_pixels")
-        expect_launches(l1, 0, at_least_once=("fused_nearest", "fused_occluded"))
+        expect_launches(l1, 0, at_least_once=("fused_nearest", "fused_occluded",
+                                              "fused_shade"))
         rec["image"] = dict(seconds=dt1, seconds_unsharded=dt0, launches=l1)
 
         # the train step with and without the group
@@ -2957,8 +2996,8 @@ def phase_defaults(device, record):
     museum through ``scenes.museum()``, ``trace.prepare``,
     ``initial_camera(0)``, ``adaptive.random_pixels`` and one
     ``render_queue`` batch of 16,384 paths at 512x512 (NEE, 8 bounces,
-    16,384 lanes).  Every tensor lands on the card, and K1 and K2 (only
-    they) launch."""
+    16,384 lanes).  Every tensor lands on the card, and K1, K2 and the
+    shade kernel (only they) launch."""
     import torch
     from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
     from wasm_pathtracer_tpu_torch.models import scenes
@@ -2982,7 +3021,8 @@ def phase_defaults(device, record):
         f"samples {int(cnt.sum())}; {card_line()}")
     if any(t.device.type != "cuda" for t in held):
         raise AssertionError(f"defaults: tensors off the card ({where})")
-    expect_launches(launches, 0, at_least_once=("fused_nearest", "fused_occluded"))
+    expect_launches(launches, 0, at_least_once=("fused_nearest", "fused_occluded",
+                                                "fused_shade"))
     if int(cnt.sum()) != B or not bool(torch.isfinite(acc).all()):
         raise AssertionError("defaults: the batch lost samples or is not finite")
     record["defaults"] = dict(tensors=len(held), devices=where, seconds=dt,
@@ -3034,9 +3074,10 @@ def phase_no_regen(device, record):
     default batch of 32,768, paths/s over ``NO_REGEN['batches']`` batches beside a
     regenerating session's (``use_regen=True``, ``render_queue``), in
     turns (per-pixel, regenerating, regenerating, per-pixel), launches
-    counted: K1 and K2 only on the museum; K1 and K5 (the lockstep
-    cluster trace) on scene 4, the 10k-triangle cloud on its cluster
-    prep, whose regenerating session takes the flat wavefront (K3, K4).
+    counted: K1, K2 and the shade kernel only on the museum; K1, K5 (the
+    lockstep cluster trace) and the shade kernel on scene 4, the
+    10k-triangle cloud on its cluster prep, whose regenerating session
+    takes the flat wavefront (K3, K4 and the shade kernel).
     Scene 4's CPU comparison takes batches of 1,024 (the plain cluster
     trace is slow on the CPU).  K1, K2 and K5 are held against their
     plain versions on the arguments of calls ``NO_REGEN_CALLS`` of the
@@ -3051,9 +3092,10 @@ def phase_no_regen(device, record):
     W, H = n["width"], n["height"]
     rec = {}
     for scene_id, per_pixel_kernels, regen_kernels, cpu_batch in (
-            (0, ("fused_nearest", "fused_occluded"), ("fused_nearest", "fused_occluded"),
-             16_384),
-            (4, ("fused_nearest", "probe_min"), ("select_scan", "probe_pair"), 1_024)):
+            (0, ("fused_nearest", "fused_occluded", "fused_shade"),
+             ("fused_nearest", "fused_occluded", "fused_shade"), 16_384),
+            (4, ("fused_nearest", "probe_min", "fused_shade"),
+             ("select_scan", "probe_pair", "fused_shade"), 1_024)):
         what = f"no_regen scene {scene_id}"
 
         def session(dev, use_regen, batch=32_768):
@@ -3117,26 +3159,30 @@ def phase_inverse_render(device, record):
     defaults (40 steps, 48x48, lr 0.8, no device argument: the card):
     it must return 0, the largest diffuse albedo error below 0.8x its
     start.  Its train steps are timed by wrapping
-    ``parallel.make_train_step``; its launches are counted, and K1 and K2
-    held against their plain versions on the arguments of their call
-    ``INVERSE_CALL`` in that run."""
+    ``parallel.make_train_step``; its launches are counted (the shade
+    kernel only in the renders outside the steps, which shade eagerly on
+    the autograd path), and K1 and K2 held against their plain versions
+    on the arguments of their call ``INVERSE_CALL`` in that run."""
     import io
     import torch
     from wasm_pathtracer_tpu_torch import parallel
     from wasm_pathtracer_tpu_torch.examples import inverse_render
     from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
+    from wasm_pathtracer_tpu_torch.ops import shade_kernels as shk
     make = parallel.make_train_step
-    times = []
+    times, shaded_in_steps = [], []
 
     def timed_make(*args, **kw):
         step = make(*args, **kw)
 
         def timed(*a):
             torch.cuda.synchronize()
+            n0 = shk.fused_shade.launches
             t0 = time.perf_counter()
             out = step(*a)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+            shaded_in_steps.append(shk.fused_shade.launches - n0)
             return out
         return timed
 
@@ -3159,7 +3205,11 @@ def phase_inverse_render(device, record):
         f"{dt:.1f} s in all, launches {launches}; {card_line()}")
     if rc != 0 or len(times) != 40:
         raise AssertionError("inverse_render: the example did not succeed at its defaults")
-    expect_launches(launches, 0, at_least_once=("fused_nearest", "fused_occluded"))
+    expect_launches(launches, 0, at_least_once=("fused_nearest", "fused_occluded",
+                                                "fused_shade"))
+    if any(shaded_in_steps):
+        raise AssertionError(f"inverse_render: train steps launched the shade kernel "
+                             f"{shaded_in_steps} times")
     if set(got) != set(which):
         raise AssertionError(f"inverse_render: the run made fewer than {INVERSE_CALL + 1} "
                              f"calls of K1 and K2 (recorded {sorted(got)})")
@@ -3168,6 +3218,105 @@ def phase_inverse_render(device, record):
                                     albedo_err_after=after, steps=len(times),
                                     steps_per_sec=len(times) / sum(times),
                                     step_seconds=times, seconds=dt, launches=launches)
+
+
+def shade_inputs(device):
+    """{"uniform": call, "pnee": call}: the arguments of the sixth
+    ``shade_kernels.fused_shade`` call of each half of a 512x512 museum
+    session, in ``fused_shade``'s order, recorded by wrapping
+    ``integrator._shade_core``."""
+    from wasm_pathtracer_tpu_torch.config import RenderType
+    from wasm_pathtracer_tpu_torch.ops import integrator
+    from wasm_pathtracer_tpu_torch.runtime.session import Session
+    sess = Session(512, 512, scene_id=0, device=device)
+    real = integrator._shade_core
+    seen, got = {}, {}
+
+    def recording(scene, settings, light_tab, *args, **kw):
+        key = "pnee" if settings.render_type == RenderType.PNEE else "uniform"
+        seen[key] = seen.get(key, 0) + 1
+        if seen[key] == 6:
+            got[key] = (scene, settings, light_tab, *args, kw["packed_rows"],
+                        kw["photon_grid"])
+        return real(scene, settings, light_tab, *args, **kw)
+
+    integrator._shade_core = recording
+    try:
+        while len(got) < 2:
+            sess.compute(65_536)
+    finally:
+        integrator._shade_core = real
+    return got
+
+
+def shade_bytes(args, settings, photon_grid, n_rows, n_lights) -> int:
+    """Bytes the shade kernel needs for one call: each lane's inputs and
+    outputs once, the hit-row and light tables once; with PNEE each
+    lane's CDF row and eight neighbour probabilities (cells the lanes
+    share count once per lane)."""
+    o, slot0 = args[0], args[7]
+    R = o.shape[0]
+    lane_in = 5 * 12 + 4 + 3 + 8 + 8 + (8 if hasattr(slot0, "shape") else 0)
+    lane_out = 5 * 12 + 2 + (3 * 12 + 1 + 8 if settings.has_nee else 0)
+    total = R * (lane_in + lane_out) + 96 * n_rows + 64 * n_lights
+    if photon_grid is not None:
+        total += R * 4 * (photon_grid.bins.shape[1] + 8)
+    return total
+
+
+def phase_shade(device, record):
+    """The shade kernel against the eager ``_shade_core`` bit for bit, and
+    both timed: on the main path's own call ``HEADLINE_CALL`` (16,384
+    lanes), then on the session calls of ``shade_inputs`` (8,192 lanes,
+    and the same lanes four times over) as other shapes.  Its launches
+    are phase main's."""
+    import torch
+    from wasm_pathtracer_tpu_torch.config import RenderType
+    from wasm_pathtracer_tpu_torch.ops import integrator
+    from wasm_pathtracer_tpu_torch.ops import shade_kernels as shk
+    calls = [("main path", headline_inputs(device)["fused_shade"], 1)]
+    sessions = shade_inputs(device)
+    calls += [(key, sessions[key], k) for key in ("uniform", "pnee") for k in (1, 4)]
+    rec = record.setdefault("fused_shade", {})
+    rec["other_shapes"] = {}
+    for key, args, k in calls:
+        scene, settings, light_tab = args[:3]
+        lanes = [x.repeat(k, *([1] * (x.dim() - 1))) if torch.is_tensor(x) else x
+                 for x in args[3:-2]] + list(args[-2:])
+        grid = args[-1] if settings.render_type == RenderType.PNEE else None
+
+        def eager():
+            return integrator._shade_eager(scene, settings, light_tab, *lanes)
+
+        def fused():
+            return shk.fused_shade(scene, settings, light_tab, *lanes)
+
+        (rc, rq), (gc, gq) = eager(), fused()
+        outs = list(zip(rc, gc)) + ([(rq[n], gq[n]) for n in rq] if rq else [])
+        differ = 0
+        for r, g in outs:
+            same = r == g
+            if r.is_floating_point():
+                same |= torch.isnan(r) & torch.isnan(g)
+            differ += int((~same).sum())
+        R = lanes[0].shape[0]
+        if differ or (rq is None) != (gq is None):
+            raise AssertionError(f"shade kernel, {key} at {R} lanes: {differ} values differ "
+                                 "from the eager _shade_core")
+        flops = R * (SHADE_FLOPS + (SHADE_PNEE_FLOPS + grid.bins.shape[1] if grid else 0))
+        bound_ms, bound_by = bound(flops, shade_bytes(
+            lanes, settings, grid, scene.params.shape[0], light_tab[0].shape[0]))
+        ms = cuda_ms(fused, 50)
+        plain_ms = cuda_ms(eager, 5, graph=False)
+        row = dict(lanes=R, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, max_abs_err=0.0)
+        log(f"shade kernel, {key} at {R} lanes: bit-equal, {ms:.4f} ms, eager "
+            f"{plain_ms:.2f} ms, bound {bound_ms:.5f} ms by {bound_by} "
+            f"({100 * bound_ms / ms:.1f}%)")
+        if key == "main path":
+            rec.update(row)
+        else:
+            rec["other_shapes"][f"{key}_{R}"] = row
 
 
 PHASES = {
@@ -3200,6 +3349,7 @@ PHASES = {
     "defaults": phase_defaults,
     "no_regen": phase_no_regen,
     "inverse_render": phase_inverse_render,
+    "shade": phase_shade,
 }
 
 
@@ -3247,7 +3397,7 @@ def main(argv) -> int:
                     ms=record[name]["ms"], plain_ms=record[name]["plain_ms"],
                     bound_ms=record[name]["bound_ms"], bound_by=record[name]["bound_by"],
                     library_ms=None, other_shapes=record[name].get("other_shapes", {}))
-               for name, rep, src in KERNELS]
+               for name, rep, src in KERNELS + (SHADE_KERNEL,)]
     log(json.dumps({k: record[k] for k in ("main_path", "mesh_path", "sweep_path",
                                            "pnee_path", "adaptive_1080p", "grad_path",
                                            "grad_gpu_vs_cpu", "train", "edges", "whitted",

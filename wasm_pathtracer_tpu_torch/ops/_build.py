@@ -49,6 +49,8 @@ _SIGNATURES = {
     "wpt_dense_tri_nearest": [_P, _I, _P, _P, _I, _P, _P, _P, _P],
     # T, R, int[8] out
     "wpt_dense_tri_launch_shape": [_I, _I, _P],
+    # ShadeArgs*, stream
+    "wpt_shade": [_P, _P],
 }
 
 

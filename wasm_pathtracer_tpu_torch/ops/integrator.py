@@ -15,7 +15,10 @@ so a path draws the same numbers in both packages.
 
 Two drivers share the per-bounce body :func:`_bounce_step`:
 :func:`trace_paths` (a fixed batch in lockstep) and :func:`render_queue`
-(the persistent wavefront with path regeneration, the main path).
+(the persistent wavefront with path regeneration, the main path).  On
+the card a bounce's shading, :func:`_shade_core`, is one launch of the
+shade kernel (``ops.shade_kernels``) unless something needs a gradient;
+its eager ops, :func:`_shade_eager`, are the autograd and CPU form.
 
 :func:`trace_paths` and :func:`render_pixels` are differentiable in the
 scene's material leaves, its shape table (light rows) and the camera.
@@ -43,6 +46,7 @@ from wasm_pathtracer_tpu_torch.models.scene import (
     SceneData,
 )
 from wasm_pathtracer_tpu_torch.ops import intersect as isx
+from wasm_pathtracer_tpu_torch.ops import shade_kernels as shk
 from wasm_pathtracer_tpu_torch.ops import trace as tr
 from wasm_pathtracer_tpu_torch.utils import rng as rnglib
 from wasm_pathtracer_tpu_torch.utils import vecmath as vm
@@ -96,10 +100,8 @@ def _clip(x, lo: float, hi: float):
     exactly on a bound: ``jnp.clip`` is a max and a min, whose gradients
     split a tie in half, where ``torch.clamp`` passes all of it.  An
     albedo of 0.9 puts the Russian-roulette keep chance right on its
-    upper bound.  Off an autograd path it stays one ``torch.clamp``, so
-    the forward drivers (:func:`render_queue`, the flat wavefront)
-    launch the same device kernels a bounce as before the gradient path
-    came (``chip_smoke.py``'s phase main counts them)."""
+    upper bound.  Off an autograd path it is one ``torch.clamp``, the
+    rounding the shade kernel (``ops/shade_kernels.py``) reproduces."""
     if not x.requires_grad:
         return torch.clamp(x, lo, hi)
     return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
@@ -131,7 +133,30 @@ def _shade_core(scene: SceneData, settings: RenderSettings, light_tab,
                 slot0, ray_id, seed, t, sid, hit, packed_rows=None,
                 photon_grid=None, prep=None):
     """Everything a bounce does after the scene trace except resolving
-    the NEE occlusion query.
+    the NEE occlusion query: one launch of the shade kernel
+    (``ops/shade_kernels.py``) where ``shade_kernels.takes_kernel`` says
+    so (tensors on the card, no edge-aware NEE, no operand that needs a
+    gradient), else :func:`_shade_eager`.  Arguments and result are
+    :func:`_shade_eager`'s.
+    """
+    if packed_rows is None:
+        packed_rows = tr.pack_hit_rows(scene)
+    if shk.takes_kernel(settings, (o, d, throughput, color, absorb, t, packed_rows,
+                                   light_tab[0], scene.background, scene.textures)):
+        return shk.fused_shade(scene, settings, light_tab, o, d, throughput, color, alive,
+                               hdb, absorb, slot0, ray_id, seed, t, sid, hit, packed_rows,
+                               photon_grid)
+    return _shade_eager(scene, settings, light_tab, o, d, throughput, color, alive, hdb,
+                        absorb, slot0, ray_id, seed, t, sid, hit, packed_rows=packed_rows,
+                        photon_grid=photon_grid, prep=prep)
+
+
+def _shade_eager(scene: SceneData, settings: RenderSettings, light_tab,
+                 o, d, throughput, color, alive, hdb, absorb,
+                 slot0, ray_id, seed, t, sid, hit, packed_rows=None,
+                 photon_grid=None, prep=None):
+    """:func:`_shade_core` as eager PyTorch ops: the autograd path, the
+    CPU path and the shade kernel's plain version.
 
     ``slot0`` is the RNG slot base: a scalar under :func:`trace_paths`,
     a per-lane tensor under :func:`render_queue`.  ``photon_grid`` guides
