@@ -53,21 +53,21 @@ CLUSTERS = dict(group=64, min_count=64)
 DEADLINE = 150
 
 
-def spawn_worlds(fn, tmps):
+def spawn_worlds(fn, tmps, deadline: float = DEADLINE):
     """Run ``fn(rank, world, tmp)`` in ``world`` spawned processes for each
     ``{world: tmp}`` of ``tmps``, all side by side, and wait for every one,
-    at most ``DEADLINE`` seconds in all.  A rank that raises or exits
-    non-zero fails the caller, as does the deadline."""
-    ctxs = [mp.start_processes(fn, args=(w, str(t)), nprocs=w, join=False,
-                               start_method="spawn") for w, t in tmps.items()]
-    end = time.monotonic() + DEADLINE
+    each world at most ``deadline`` seconds from its start.  A rank that
+    raises or exits non-zero fails the caller, as does a deadline."""
+    ctxs = [(mp.start_processes(fn, args=(w, str(t)), nprocs=w, join=False,
+                                start_method="spawn"), time.monotonic() + deadline)
+            for w, t in tmps.items()]
     try:
-        for ctx in ctxs:
+        for ctx, end in ctxs:
             while not ctx.join(timeout=max(end - time.monotonic(), 0.0)):
                 if time.monotonic() >= end:
-                    raise AssertionError(f"spawned ranks did not finish in {DEADLINE} s")
+                    raise AssertionError(f"spawned ranks did not finish in {deadline} s")
     finally:
-        for ctx in ctxs:
+        for ctx, _ in ctxs:
             for p in ctx.processes:
                 if p.is_alive():
                     p.kill()

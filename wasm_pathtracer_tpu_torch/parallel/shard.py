@@ -63,6 +63,15 @@ class RayMesh:
     rank: int
     size: int
     device: torch.device
+    # host tally behind ``bytes_all_reduced``; a mesh is frozen, its count is not
+    _tally: dict = dataclasses.field(default_factory=lambda: {"bytes": 0},
+                                     compare=False, repr=False)
+
+    @property
+    def bytes_all_reduced(self) -> int:
+        """Bytes this member has handed to all-reduces so far (a host
+        count; the one-member mesh makes none)."""
+        return self._tally["bytes"]
 
     def _check_backend(self, t: torch.Tensor):
         want = _BACKEND_OF.get(t.device.type)
@@ -80,6 +89,7 @@ class RayMesh:
         if self.group is not None:
             self._check_backend(t)
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+            self._tally["bytes"] += t.numel() * t.element_size()
         return t
 
     def all_gather(self, t: torch.Tensor) -> list:
@@ -159,9 +169,11 @@ def render_image_sharded(mesh: RayMesh, prep: trace.ScenePrep, scene,
 def _queue_sharded(renderer, mesh: RayMesh, prep: trace.ScenePrep, scene,
                    settings: RenderSettings, camera: Camera, pix_queue,
                    width: int, height: int, seed, lanes_per_device: int,
-                   rid_base: int, photon_grid=None):
+                   rid_base: int, photon_grid=None, exact_lanes: bool = False,
+                   iters_out=None):
     """Each rank runs ``renderer`` over its contiguous shard of the queue;
-    the frame sums, counts and cost are summed over the mesh.
+    the frame sums, counts and cost are summed over the mesh, inside one
+    ``shard.all_reduce`` span (args: the bytes summed, the ranks).
 
     The queue is padded to a multiple of the member count with the pixel
     id ``width * height``, which the loops drop.  Path ``i`` of rank
@@ -178,14 +190,19 @@ def _queue_sharded(renderer, mesh: RayMesh, prep: trace.ScenePrep, scene,
     # the JAX version's one-sided clamp: an iteration costs about the full
     # lane width whatever the live lanes, so a shard narrower than the
     # lanes would pay its drain tail at every rank count
-    lanes = min(lanes_per_device, max(1024, shard // 32))
+    lanes = lanes_per_device if exact_lanes else min(lanes_per_device,
+                                                     max(1024, shard // 32))
     acc, cnt, lane_cost = renderer(
         prep, scene, settings, camera, pixq[mesh.rank * shard:(mesh.rank + 1) * shard],
         width, height, seed, lanes, photon_grid=photon_grid,
-        rid_base=(rid_base + mesh.rank * shard) & _M32)
+        rid_base=(rid_base + mesh.rank * shard) & _M32, iters_out=iters_out)
     cost = lane_cost.to(torch.float32).sum().reshape(1)
-    for t in (acc, cnt, cost):
-        mesh.all_reduce(t)
+    summed = (acc, cnt, cost)
+    with span("shard.all_reduce", {"bytes": sum(t.numel() * t.element_size()
+                                                 for t in summed),
+                                   "ranks": mesh.size}):
+        for t in summed:
+            mesh.all_reduce(t)
     return acc, cnt, cost[0]
 
 
@@ -193,29 +210,37 @@ def render_queue_sharded(mesh: RayMesh, prep: trace.ScenePrep, scene,
                          settings: RenderSettings, camera: Camera,
                          pix_queue, width: int, height: int, seed,
                          lanes_per_device: int, rid_base: int = 0,
-                         photon_grid=None):
+                         photon_grid=None, exact_lanes: bool = False,
+                         iters_out=None):
     """``integrator.render_queue`` over the queue sharded on the mesh: the
     renderer of dense (non-clustered) scenes.
+
+    ``lanes_per_device`` is clamped to a 32nd of the shard (at least
+    1,024) unless ``exact_lanes``, with which a caller that sized its
+    lanes to its shard (``runtime.session``) keeps them.  ``iters_out``:
+    this rank's loop iterations are appended to it.
 
     Returns (color_sum (H*W, 3), n_samples (H*W,) int32, cost () float32),
     the same on every rank.
     """
     return _queue_sharded(integrator.render_queue, mesh, prep, scene, settings,
                           camera, pix_queue, width, height, seed, lanes_per_device,
-                          rid_base, photon_grid)
+                          rid_base, photon_grid, exact_lanes, iters_out)
 
 
 def render_queue_flat_sharded(mesh: RayMesh, prep: trace.ScenePrep, scene,
                               settings: RenderSettings, camera: Camera,
                               pix_queue, width: int, height: int, seed,
                               lanes_per_device: int, rid_base: int = 0,
-                              photon_grid=None):
+                              photon_grid=None, exact_lanes: bool = False,
+                              iters_out=None):
     """``wavefront.render_queue_flat`` over the queue sharded on the mesh:
     the renderer of cluster scenes (meshes, clouds); needs
-    ``prep.cluster``.  Returns what :func:`render_queue_sharded` does."""
+    ``prep.cluster``.  Arguments and returns as
+    :func:`render_queue_sharded`."""
     return _queue_sharded(wavefront.render_queue_flat, mesh, prep, scene, settings,
                           camera, pix_queue, width, height, seed, lanes_per_device,
-                          rid_base, photon_grid)
+                          rid_base, photon_grid, exact_lanes, iters_out)
 
 
 def _check_prep(prep: trace.ScenePrep, train_lights: bool, train_camera: bool,

@@ -12,9 +12,18 @@ saves the render state at the end and ``--resume`` restores it first
 (the JAX package's file format).  The device defaults to CUDA, and
 asking for it without a card is an error.
 
+``--ranks N`` renders the session over N processes of this host, one a
+card (``parallel.distributed.launch``): every rank holds the whole
+session and traces its shard of each batch (``--batch`` paths, so a
+half's batch is N x ``--batch``), the frame sums are all-reduced, and
+rank 0 alone writes the PNG, the bench line and the checkpoint.  A rank
+that fails stops every rank.
+
 Usage:
   python -m wasm_pathtracer_tpu_torch.runtime.cli --scene 0 \
       --width 512 --height 512 --ticks 262144 --out frame.png
+  python -m wasm_pathtracer_tpu_torch.runtime.cli --scene 0 --ranks 4 \
+      --right-type 2 --right-adaptive --seconds 10 --bench --out frame.png
   python -m wasm_pathtracer_tpu_torch.runtime.cli --scene 101 --whitted 4 \
       --out whitted.png
 """
@@ -23,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 
 
@@ -73,12 +83,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0xBABABEBE)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to render on (default cuda)")
+    p.add_argument("--ranks", type=int, default=1,
+                   help="processes to render the session over, one a card "
+                        "(NCCL; gloo with --device cpu)")
     return p
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.ranks > 1:
+        if args.debug_view is not None or args.whitted is not None:
+            parser.error("--ranks renders a session; --debug-view and --whitted "
+                         "render on one device")
+        from wasm_pathtracer_tpu_torch.parallel.distributed import launch
+        launch(_rank_main, args.ranks, args=(argv,), device=args.device)
+        return
+    _render(args)
 
+
+def _rank_main(mesh, argv):
+    """One rank of ``--ranks``: the session over ``mesh``."""
+    _render(build_parser().parse_args(argv), mesh)
+
+
+def _render(args, mesh=None):
     import torch
 
     from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
@@ -107,7 +137,10 @@ def main(argv=None):
     sess = Session(width, height, args.scene, camera=camera,
                    left=settings(args.left_type, args.left_adaptive),
                    right=settings(args.right_type, args.right_adaptive),
-                   seed=args.seed, device=args.device)
+                   seed=args.seed, device=args.device if mesh is None else None,
+                   mesh=mesh)
+    # rank 0 writes what the run leaves behind
+    writes = mesh is None or mesh.rank == 0
     if args.obj:
         from wasm_pathtracer_tpu_torch.utils.obj import load_obj
         # the client's preparation of its bunny: scale x8, flip z
@@ -164,12 +197,22 @@ def main(argv=None):
     t0 = time.perf_counter()
     if args.ticks is not None:
         traced = sess.compute(args.ticks)
-    else:
+    elif mesh is None:
         drv = Driver(sess)
         drv.run(seconds=args.seconds)
         traced = drv.total_ticks
+    else:
+        # one batch a half a step, until rank 0's clock says stop: every
+        # rank makes the same steps, so the collectives pair up
+        from wasm_pathtracer_tpu_torch.parallel.distributed import rank0_decides
+        step = sess.left.settings.ray_batch_size + sess.right.settings.ray_batch_size
+        traced = 0
+        while rank0_decides(traced == 0 or time.perf_counter() - t0 < args.seconds):
+            traced += sess.compute(step * mesh.size)
     sync()
     dt = time.perf_counter() - t0
+    if not writes:
+        return
 
     if args.bench:
         kind = (torch.cuda.get_device_name(sess.device)
@@ -181,6 +224,7 @@ def main(argv=None):
             "device": kind,
             "bvh_visits": sess.num_bvh_hits,
             "queue_iters": sess.num_queue_iters,
+            "ranks": 1 if mesh is None else mesh.size,
             "paths": traced,
             "seconds": dt,
         }))

@@ -13,6 +13,16 @@ A PNEE instance first spends its ticks on photons, ``photons_per_tick``
 a tick, until its grid holds ``total_photons``.  Finite families of at
 least ``bvh_min_triangles`` shapes are clustered (every finite family
 with ``use_bvh=True``, none with ``use_bvh=False``).
+
+Over a mesh of n ranks (``mesh``, ``parallel.shard.RayMesh``; one process
+a card) a half's batch is n x ``ray_batch_size`` paths: every rank draws
+the same picks from its copy of the buffer, traces its contiguous shard
+of the queue through ``shard.render_queue_sharded`` (or
+``render_queue_flat_sharded``) with global path keys, and adds the
+all-reduced sums to its buffer, so the buffer, the picks, the photon
+grids (emitted alike on every rank) and the ledger of paths stay equal
+on every rank.  ``ray_batch_size`` is thus each rank's share, and the
+session renders what one rank would with a batch n times as large.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ from wasm_pathtracer_tpu_torch.models import scenes as scene_registry
 from wasm_pathtracer_tpu_torch.models.camera import Camera, initial_camera
 from wasm_pathtracer_tpu_torch.ops import (accum, adaptive, bvh, integrator,
                                            photon, trace, wavefront)
+from wasm_pathtracer_tpu_torch.parallel import shard
 from wasm_pathtracer_tpu_torch.utils import rng as rnglib
 from wasm_pathtracer_tpu_torch.utils.device import resolve_device
 from wasm_pathtracer_tpu_torch.utils.png import tonemap_u8
@@ -74,7 +85,8 @@ class RenderInstance:
         s = self.session
         st = self.settings
         W, H = s.width, s.height
-        batch = st.ray_batch_size
+        # the whole batch over every rank; each traces ray_batch_size of it
+        batch = st.ray_batch_size * (1 if s.mesh is None else s.mesh.size)
         ticks_left = num_ticks
 
         if st.render_type == RenderType.PNEE:
@@ -91,12 +103,22 @@ class RenderInstance:
         # lanes capped at a quarter of the batch (the session's queue is
         # one batch, so a wide wavefront pays its drain tail every step);
         # an explicit smaller regen_lanes is honoured
-        lanes = min(st.regen_lanes, batch, max(1024, batch // 4))
+        lanes = min(st.regen_lanes, st.ray_batch_size, max(1024, st.ray_batch_size // 4))
         # decorrelates the halves' RNG streams under the same round seed
         # (the per-pixel route keys a path by its pixel, as in JAX)
         rid_base = 0x40000000 if self.x0 > 0 or self.y0 > 0 else 0
         use_flat = s.prep.cluster is not None and st.use_flat_wavefront is not False
-        queue_fn = wavefront.render_queue_flat if use_flat else integrator.render_queue
+        if s.mesh is None:
+            queue_fn = wavefront.render_queue_flat if use_flat else integrator.render_queue
+        else:
+            if not use_regen:
+                raise ValueError("a session over a mesh renders through the "
+                                 "regenerating queue (use_regen and early_exit on)")
+            sharded = (shard.render_queue_flat_sharded if use_flat
+                       else shard.render_queue_sharded)
+
+            def queue_fn(*args, **kw):
+                return sharded(s.mesh, *args, exact_lanes=True, **kw)
         traced = 0
         costs = []
         last_density = None
@@ -178,7 +200,9 @@ class Session:
     """A rendering session over a width x height viewport.
 
     ``left`` defaults to NEE with uniform pixel sampling, ``right`` to
-    PNEE with adaptive sampling, as in the JAX session.
+    PNEE with adaptive sampling, as in the JAX session.  ``mesh`` shards
+    each batch's queue over its ranks (see the module's docstring); the
+    session then renders on the mesh's device.
     """
 
     def __init__(self, width: int, height: int, scene_id: int = 100,
@@ -187,8 +211,10 @@ class Session:
                  right: RenderSettings | None = None,
                  seed: int = 0xBABABEBE,
                  use_bvh: bool | None = None,
-                 device=None):
-        self.device = resolve_device(device)
+                 device=None, mesh: shard.RayMesh | None = None):
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None and device is None
+                                     else device)
         self.width, self.height = width, height
         self.seed = seed
         self.use_bvh = use_bvh
