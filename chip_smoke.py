@@ -229,12 +229,22 @@ its last line):
     (the left half's uniform NEE, then the right half's PNEE after its
     300,000 photons; 8,192 lanes) and the same lanes four times over
     (32,768).
+35. The regen kernel (``regen``): ``fused_regen`` against the eager
+    ``regen.regen`` bit for bit (every register, the frame's counts
+    exactly and its sums within rtol 1e-5), then both timed as the
+    kernels above on the arguments of regeneration ``REGEN_CALL`` of a
+    queue loop over 8 x lanes random pixels of a 512x512 frame: the
+    museum through ``render_queue`` and mesh70k through
+    ``render_queue_flat``, at 16,384 and 8,192 lanes.
 
 The shade kernel is counted with the others wherever launches are:
 once per iteration in every queue loop, at least once in the sessions
 and the renders outside autograd, never in a gradient or train step
-(the autograd path shades eagerly).  Phase 5's trace must hold its
-``wpt_shade_kernel`` as often as the wrapper counted launches.
+(the autograd path shades eagerly).  The regen kernel is counted the
+same way, once per iteration in every queue loop and never outside one
+(the per-pixel route, the renders and the steps regenerate nothing).
+Phase 5's trace must hold ``wpt_shade_kernel`` and ``wpt_regen_kernel``
+as often as their wrappers counted launches.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 call that was timed: the larger of its bytes (each input and output
@@ -557,8 +567,10 @@ SHADE_FLOPS, SHADE_PNEE_FLOPS = 350, 85
 
 
 def wrappers():
-    """Kernel wrapper of each name in ``KERNELS`` and of ``SHADE_KERNEL``."""
+    """Kernel wrapper of each name in ``KERNELS``, ``SHADE_KERNEL`` and
+    ``REGEN_KERNEL``."""
     from wasm_pathtracer_tpu_torch.ops import probe_kernels as pk
+    from wasm_pathtracer_tpu_torch.ops import regen_kernels as rgk
     from wasm_pathtracer_tpu_torch.ops import scene_kernels as sk
     from wasm_pathtracer_tpu_torch.ops import shade_kernels as shk
     from wasm_pathtracer_tpu_torch.ops import traverse_kernels as tk
@@ -566,7 +578,7 @@ def wrappers():
             "select_scan": pk.select_scan, "probe_pair": pk.probe_pair,
             "probe_min": pk.probe_min, "select_blocks": pk.select_blocks,
             "probe_blocks": pk.probe_blocks, "dense_tri_nearest": tk.dense_tri_nearest,
-            "fused_shade": shk.fused_shade}
+            "fused_shade": shk.fused_shade, "fused_regen": rgk.fused_regen}
 
 
 def reset_counts():
@@ -1109,8 +1121,9 @@ def phase_main_path(device, record):
     prep, cam = trace.prepare(scene), initial_camera(0, device)
     launches, iters, rec = run_queue("main path: museum", integrator.render_queue,
                                      prep, scene, st, cam, h, device)
-    expect_launches(launches, iters, ("fused_nearest", "fused_occluded", "fused_shade"))
-    for name in ("fused_nearest", "fused_occluded", "fused_shade"):
+    expect_launches(launches, iters, ("fused_nearest", "fused_occluded", "fused_shade",
+                                      "fused_regen"))
+    for name in ("fused_nearest", "fused_occluded", "fused_shade", "fused_regen"):
         record.setdefault(name, {})["launches"] = launches[name]
     # device kernels per iteration, and the device's busy share, in a short run
     short = headline_queue(device, 8 * h["B"])
@@ -1120,7 +1133,7 @@ def phase_main_path(device, record):
             prep, scene, st, cam, short, h["width"], h["height"], 3, h["B"],
             return_iters=True)[3]),
         {"fused_nearest": "fused_nearest_kernel", "fused_occluded": "fused_occluded_kernel",
-         "fused_shade": "wpt_shade_kernel"})
+         "fused_shade": "wpt_shade_kernel", "fused_regen": "wpt_regen_kernel"})
     rec["kernels_per_iteration"] = n_kernels / short_iters[-1]
     log(f"main path: {rec['kernels_per_iteration']:.1f} device kernels per iteration "
         f"({short_iters[-1]} iterations, S={short.numel()}), device busy "
@@ -1609,7 +1622,8 @@ def phase_mesh_path(device, record):
         f"mesh path: mesh70k ({scene.num_shapes} shapes, C={prep.cluster.num_clusters}, "
         f"dense {sum(prep.tables.counts)})", wavefront.render_queue_flat, prep, scene, st,
         mesh_camera(device), h, device)
-    expect_launches(launches, iters, ("select_scan", "probe_pair", "fused_shade"))
+    expect_launches(launches, iters, ("select_scan", "probe_pair", "fused_shade",
+                                      "fused_regen"))
     for name in ("select_scan", "probe_pair"):
         record.setdefault(name, {})["launches"] = launches[name]
     record["mesh_path"] = rec
@@ -1660,7 +1674,7 @@ def phase_lockstep(device, record):
     torch.cuda.synchronize()
     launches = read_counts()
     log(f"lockstep mesh70k {W}x{H}: {iters} iterations, launches {launches}")
-    expect_launches(launches, iters, ("fused_shade",),
+    expect_launches(launches, iters, ("fused_shade", "fused_regen"),
                     at_least_once=("fused_nearest", "probe_min"))
     record.setdefault("probe_min", {})["launches"] = launches["probe_min"]
     flat = wavefront.render_queue_flat(prep, scene, st, mesh_camera(device), pix, W, H,
@@ -1677,7 +1691,7 @@ def phase_lockstep(device, record):
     torch.cuda.synchronize()
     launches7 = read_counts()
     log(f"lockstep with the unreduced probe: {iters7} iterations, launches {launches7}")
-    expect_launches(launches7, iters7, ("fused_shade",),
+    expect_launches(launches7, iters7, ("fused_shade", "fused_regen"),
                     at_least_once=("fused_nearest", "probe_blocks"))
     if launches7["probe_blocks"] != launches["probe_min"] or iters7 != iters:
         raise AssertionError("the unreduced probe should run the reduced probe's rounds")
@@ -1706,7 +1720,7 @@ def phase_k6_path(device, record):
     log(f"K6 path: museum clustered ({sum(prep.tables.counts)} dense, "
         f"C={prep.cluster.num_clusters}) {W}x{H}: {iters} iterations, launches {launches}")
     expect_launches(launches, iters, ("select_blocks", "fused_nearest", "probe_pair",
-                                      "fused_shade"))
+                                      "fused_shade", "fused_regen"))
     record.setdefault("select_blocks", {})["launches"] = launches["select_blocks"]
     ref = integrator.render_queue(trace.prepare(scene), scene, st, cam, pix, W, H,
                                   SEED, 1024)
@@ -1727,7 +1741,7 @@ def phase_sweep_path(device, record):
         f"dense-sweep path: mesh70k ({prep.tri_rows.shape[0]} triangles swept, "
         f"{sum(prep.tables.counts)} shapes in K1's tables)",
         integrator.render_queue, prep, scene, st, cam, h, device)
-    expect_launches(launches, iters, ("fused_shade",),
+    expect_launches(launches, iters, ("fused_shade", "fused_regen"),
                     twice_per_iteration=("dense_tri_nearest", "fused_nearest"))
     record.setdefault("dense_tri_nearest", {})["launches"] = launches["dense_tri_nearest"]
     short = headline_queue(device, 8 * h["B"])
@@ -1777,7 +1791,7 @@ def phase_bvh4(device, record):
     torch.cuda.synchronize()
     t_bvh = time.perf_counter() - t0
     launches = read_counts()
-    expect_launches(launches, out_b[3], ("fused_shade",),
+    expect_launches(launches, out_b[3], ("fused_shade", "fused_regen"),
                     twice_per_iteration=("fused_nearest",))
     t0 = time.perf_counter()
     out_s = integrator.render_queue(prep_sweep, scene, st, cam, pix, W, H, SEED, 1024)
@@ -1826,7 +1840,8 @@ def phase_pnee(device, record):
     launches, iters, rec = run_queue("museum PNEE", integrator.render_queue, prep, scene,
                                      st, initial_camera(0, device), h, device,
                                      photon_grid=grid)
-    expect_launches(launches, iters, ("fused_nearest", "fused_occluded", "fused_shade"))
+    expect_launches(launches, iters, ("fused_nearest", "fused_occluded", "fused_shade",
+                                      "fused_regen"))
     rec.update(photons_landed_per_sec=landed / dt, photons_shot_per_sec=shots / dt)
     record["pnee_path"] = rec
 
@@ -1878,7 +1893,7 @@ def phase_adaptive(device, record):
     if not bool(torch.isfinite(sess.buffer.acc).all()):
         raise AssertionError("non-finite radiance")
     expect_launches(launches, 0, at_least_once=("fused_nearest", "fused_occluded",
-                                                "fused_shade"))
+                                                "fused_shade", "fused_regen"))
     record["adaptive_1080p"] = dict(paths_per_sec=traced / dt, seconds=dt,
                                     bootstrap_paths_per_sec=2 * n_boot * batch / t_boot,
                                     excess_mass=excess)
@@ -2731,7 +2746,7 @@ def phase_live(device, record):
     if final["total_ticks"] <= 0:
         raise AssertionError("live: the ticks did not grow")
     expect_launches(launches, 0, at_least_once=("fused_nearest", "fused_occluded",
-                                                "fused_shade"))
+                                                "fused_shade", "fused_regen"))
 
 
 def phase_cli_runtime(device, record):
@@ -2863,12 +2878,13 @@ def phase_shard(device, record):
         prep, cam = trace.prepare(scene), initial_camera(0, device)
         rec["museum"] = sharded_against_unsharded(
             "museum headline", integrator.render_queue, render_queue_sharded, mesh, prep,
-            scene, st, cam, h, device, ("fused_nearest", "fused_occluded", "fused_shade"))
+            scene, st, cam, h, device, ("fused_nearest", "fused_occluded", "fused_shade",
+                                        "fused_regen"))
         mscene, mprep = mesh70k(device)
         rec["mesh70k_flat"] = sharded_against_unsharded(
             "mesh70k flat", wavefront.render_queue_flat, render_queue_flat_sharded, mesh,
             mprep, mscene, st, mesh_camera(device), MESH, device,
-            ("select_scan", "probe_pair", "fused_shade"))
+            ("select_scan", "probe_pair", "fused_shade", "fused_regen"))
 
         # the frame: render_image_sharded against render_pixels
         W, H = h["width"], h["height"]
@@ -3022,7 +3038,7 @@ def phase_defaults(device, record):
     if any(t.device.type != "cuda" for t in held):
         raise AssertionError(f"defaults: tensors off the card ({where})")
     expect_launches(launches, 0, at_least_once=("fused_nearest", "fused_occluded",
-                                                "fused_shade"))
+                                                "fused_shade", "fused_regen"))
     if int(cnt.sum()) != B or not bool(torch.isfinite(acc).all()):
         raise AssertionError("defaults: the batch lost samples or is not finite")
     record["defaults"] = dict(tensors=len(held), devices=where, seconds=dt,
@@ -3093,9 +3109,9 @@ def phase_no_regen(device, record):
     rec = {}
     for scene_id, per_pixel_kernels, regen_kernels, cpu_batch in (
             (0, ("fused_nearest", "fused_occluded", "fused_shade"),
-             ("fused_nearest", "fused_occluded", "fused_shade"), 16_384),
+             ("fused_nearest", "fused_occluded", "fused_shade", "fused_regen"), 16_384),
             (4, ("fused_nearest", "probe_min", "fused_shade"),
-             ("select_scan", "probe_pair", "fused_shade"), 1_024)):
+             ("select_scan", "probe_pair", "fused_shade", "fused_regen"), 1_024)):
         what = f"no_regen scene {scene_id}"
 
         def session(dev, use_regen, batch=32_768):
@@ -3319,6 +3335,155 @@ def phase_shade(device, record):
             rec["other_shapes"][f"{key}_{R}"] = row
 
 
+# the regen kernel replaces the eager regeneration, no TPU kernel
+REGEN_KERNEL = ("fused_regen", None, "wasm_pathtracer_tpu_torch/csrc/regen_kernels.cu")
+# which regeneration of a queue loop ``regen_inputs`` records, counted from 0
+REGEN_CALL = 2
+
+
+def regen_inputs(device, route, lanes):
+    """``(q, lanes, was, fin)``, copies of the arguments of regeneration
+    ``REGEN_CALL`` of a queue loop on ``lanes`` lanes over 8 x ``lanes``
+    random pixels of a 512x512 frame, 8 bounces, NEE: the museum through
+    ``render_queue`` (``route`` "queue") or mesh70k through
+    ``render_queue_flat`` ("flat"), recorded by wrapping
+    ``regen_kernels.fused_regen``."""
+    import dataclasses
+    from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+    from wasm_pathtracer_tpu_torch.models import scenes
+    from wasm_pathtracer_tpu_torch.models.camera import initial_camera
+    from wasm_pathtracer_tpu_torch.ops import integrator, trace, wavefront
+    from wasm_pathtracer_tpu_torch.ops import regen as rg
+    from wasm_pathtracer_tpu_torch.ops import regen_kernels as rgk
+    st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=8)
+    if route == "flat":
+        (scene, prep), cam, fn = mesh70k(device), mesh_camera(device), wavefront.render_queue_flat
+    else:
+        scene = scenes.museum(device)
+        prep, cam, fn = trace.prepare(scene), initial_camera(0, device), integrator.render_queue
+    real, got, calls = rgk.fused_regen, [], [0]
+
+    def recording(q, ln, was=None, fin=None):
+        if calls[0] == REGEN_CALL:
+            got.append((dataclasses.replace(q, acc=q.acc.clone(), cnt=q.cnt.clone()),
+                        rg.Lanes(**{f.name: None if getattr(ln, f.name) is None
+                                    else getattr(ln, f.name).clone()
+                                    for f in dataclasses.fields(ln)}), was, fin))
+        calls[0] += 1
+        real(q, ln, was, fin)
+
+    # the wrapper counts its launches on whatever its module name holds
+    recording.launches = real.launches
+    rgk.fused_regen = recording
+    try:
+        fn(prep, scene, st, cam, headline_queue(device, 8 * lanes), 512, 512, 6, lanes)
+    finally:
+        real.launches = recording.launches
+        rgk.fused_regen = real
+    if not got:
+        raise AssertionError(f"regen inputs: the {route} loop made {calls[0]} regenerations")
+    return got[0]
+
+
+def packed_lanes(ln):
+    """A uint8 buffer holding a copy of every register of ``ln``, 256-byte
+    aligned, and a ``Lanes`` of views into it, so that one copy restores
+    them all."""
+    import dataclasses
+    import torch
+    from wasm_pathtracer_tpu_torch.ops import regen as rg
+    regs = {f.name: getattr(ln, f.name) for f in dataclasses.fields(ln)
+            if getattr(ln, f.name) is not None}
+    offs, total = {}, 0
+    for k, t in regs.items():
+        offs[k] = total
+        total += -(-t.numel() * t.element_size() // 256) * 256
+    buf = ln.o.new_empty((total,), dtype=torch.uint8)
+    views = {}
+    for k, t in regs.items():
+        n = t.numel() * t.element_size()
+        views[k] = buf[offs[k]:offs[k] + n].view(t.dtype).view(t.shape)
+        views[k].copy_(t)
+    return buf, rg.Lanes(**views)
+
+
+def regen_bytes(ln, fin, claims) -> int:
+    """Bytes the regen kernel needs for one call: each lane register read
+    and written once, the route's other per-lane inputs read once (the
+    path's alive flag before the bounce, or the flat route's FINALIZE
+    flags and shadow rays), and the queue entry each claim gathers.  The
+    frame's atomic adds are left out."""
+    import dataclasses
+    regs = sum(getattr(ln, f.name).numel() * getattr(ln, f.name).element_size()
+               for f in dataclasses.fields(ln) if getattr(ln, f.name) is not None)
+    B = ln.pid.shape[0]
+    inputs = B * (5 + 24) if fin is not None else B
+    return 2 * regs + inputs + 8 * claims
+
+
+def same_bits(a, b) -> bool:
+    """Equal tensors, float32 compared bit for bit (-0 against +0 too)."""
+    import torch
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def phase_regen(device, record):
+    """The regen kernel against the eager ``regen.regen`` bit for bit on
+    real loop iterations (``regen_inputs``: the museum's queue route and
+    mesh70k's flat route, 8,192 and 16,384 lanes), then both timed on
+    them.  The kernel writes its registers in place, so each timed call
+    first restores them with one copy (``packed_lanes``); the copy alone
+    is timed and taken off.  Its launches are phase main's."""
+    import dataclasses
+    import torch
+    from wasm_pathtracer_tpu_torch.ops import regen as rg
+    from wasm_pathtracer_tpu_torch.ops import regen_kernels as rgk
+    rec = record.setdefault("fused_regen", {})
+    rec["other_shapes"] = {}
+    for route, lanes in (("queue", 16_384), ("queue", 8_192), ("flat", 16_384),
+                         ("flat", 8_192)):
+        q, ln, was, fin = regen_inputs(device, route, lanes)
+        buf, work = packed_lanes(ln)
+        pristine = buf.clone()
+
+        def frame_copy():
+            return dataclasses.replace(q, acc=q.acc.clone(), cnt=q.cnt.clone())
+
+        eager_ln, eq = dataclasses.replace(work), frame_copy()
+        rg.regen(eq, eager_ln, was, fin)
+        claims = int(eager_ln.issued) - int(ln.issued)
+        kq = frame_copy()
+        rgk.fused_regen(kq, work, was, fin)
+        differ = [f.name for f in dataclasses.fields(work) if getattr(work, f.name) is not None
+                  and not same_bits(getattr(work, f.name), getattr(eager_ln, f.name))]
+        if differ or not torch.equal(kq.cnt, eq.cnt) or not torch.allclose(
+                kq.acc[:-1], eq.acc[:-1], rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"regen kernel, {route} route at {lanes} lanes: differs from "
+                                 f"the eager regen in {differ or 'the frame'}")
+        tq = frame_copy()
+
+        def call():
+            buf.copy_(pristine)
+            rgk.fused_regen(tq, work, was, fin)
+
+        copy_ms = cuda_ms(lambda: buf.copy_(pristine), 50)
+        ms = cuda_ms(call, 50) - copy_ms
+        plain_ms = cuda_ms(lambda: rg.regen(tq, dataclasses.replace(work), was, fin), 5,
+                           graph=False)
+        bound_ms, bound_by = bound(0, regen_bytes(work, fin, claims))
+        row = dict(lanes=lanes, route=route, claims=claims, ms=ms, copy_ms=copy_ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0)
+        log(f"regen kernel, {route} route at {lanes} lanes ({claims} claims): bit-equal, "
+            f"{ms:.4f} ms (less the {copy_ms:.4f}-ms restoring copy), eager {plain_ms:.2f} ms, "
+            f"bound {bound_ms:.5f} ms by {bound_by} ({100 * bound_ms / ms:.1f}%); "
+            f"{card_line()}")
+        if (route, lanes) == ("queue", 16_384):
+            rec.update(row)
+        else:
+            rec["other_shapes"][f"{route}_{lanes}"] = row
+
 PHASES = {
     "k1": phase_kernel_k1,
     "k2": phase_kernel_k2,
@@ -3350,6 +3515,7 @@ PHASES = {
     "no_regen": phase_no_regen,
     "inverse_render": phase_inverse_render,
     "shade": phase_shade,
+    "regen": phase_regen,
 }
 
 
@@ -3397,7 +3563,7 @@ def main(argv) -> int:
                     ms=record[name]["ms"], plain_ms=record[name]["plain_ms"],
                     bound_ms=record[name]["bound_ms"], bound_by=record[name]["bound_by"],
                     library_ms=None, other_shapes=record[name].get("other_shapes", {}))
-               for name, rep, src in KERNELS + (SHADE_KERNEL,)]
+               for name, rep, src in KERNELS + (SHADE_KERNEL, REGEN_KERNEL)]
     log(json.dumps({k: record[k] for k in ("main_path", "mesh_path", "sweep_path",
                                            "pnee_path", "adaptive_1080p", "grad_path",
                                            "grad_gpu_vs_cpu", "train", "edges", "whitted",

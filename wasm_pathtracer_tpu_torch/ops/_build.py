@@ -51,6 +51,8 @@ _SIGNATURES = {
     "wpt_dense_tri_launch_shape": [_I, _I, _P],
     # ShadeArgs*, stream
     "wpt_shade": [_P, _P],
+    # RegenArgs*, stream
+    "wpt_regen": [_P, _P],
 }
 
 

@@ -18,7 +18,9 @@ Two drivers share the per-bounce body :func:`_bounce_step`:
 (the persistent wavefront with path regeneration, the main path).  On
 the card a bounce's shading, :func:`_shade_core`, is one launch of the
 shade kernel (``ops.shade_kernels``) unless something needs a gradient;
-its eager ops, :func:`_shade_eager`, are the autograd and CPU form.
+its eager ops, :func:`_shade_eager`, are the autograd and CPU form.  The
+queue's regeneration is ``ops.regen``, one launch of the regen kernel
+(``ops.regen_kernels``) on the card.
 
 :func:`trace_paths` and :func:`render_pixels` are differentiable in the
 scene's material leaves, its shape table (light rows) and the camera.
@@ -46,6 +48,8 @@ from wasm_pathtracer_tpu_torch.models.scene import (
     SceneData,
 )
 from wasm_pathtracer_tpu_torch.ops import intersect as isx
+from wasm_pathtracer_tpu_torch.ops import regen as rg
+from wasm_pathtracer_tpu_torch.ops import regen_kernels as rgk
 from wasm_pathtracer_tpu_torch.ops import shade_kernels as shk
 from wasm_pathtracer_tpu_torch.ops import trace as tr
 from wasm_pathtracer_tpu_torch.utils import rng as rnglib
@@ -54,7 +58,7 @@ from wasm_pathtracer_tpu_torch.utils.spans import span
 
 # RNG slot layout: slots [b*8, b*8+8) belong to bounce b; SLOT_JITTER is
 # the pixel jitter of a primary ray.
-SLOT_JITTER = 0x7FFF0000
+SLOT_JITTER = rg.SLOT_JITTER
 _SLOTS_PER_BOUNCE = 8
 _SLOT_HEMI = 0
 _SLOT_RR = 1
@@ -461,7 +465,9 @@ def render_queue(prep, scene, settings: RenderSettings, camera: Camera,
     have lane-ring capacity left (``K`` paths per lane).  Where the JAX
     version records finished paths in that ring and scatters once after
     the loop, this one adds them to the frame as they finish
-    (``index_add_``), so float sums may be taken in another order.
+    (``ops/regen.py``; on the card one launch of the regen kernel an
+    iteration, ``ops/regen_kernels.py``), so float sums may be taken in
+    another order.
 
     The loop condition reads ``alive.any()`` on the host once per
     iteration; nothing else in the loop waits for the device.
@@ -505,82 +511,23 @@ def render_queue(prep, scene, settings: RenderSettings, camera: Camera,
 
     light_tab = _light_table(scene)
     packed_rows = tr.pack_hit_rows(scene)
-    # lane-ring capacity of the JAX version: bounds how many paths one
-    # lane may record, and so which lanes may claim
-    K = -(-S // B)
-    K += max(2, K // 2)
-
-    def ray_of(pid, sidx):
-        rid = (rid_base + sidx) & 0xFFFFFFFF
-        jx, jy, _ = rnglib.uniform3(seed, rid, SLOT_JITTER)
-        o, d = primary_rays(camera, pid % width, pid // width, jx, jy,
-                            width, height, settings.screen_z)
-        return rid, o.contiguous(), d
-
-    # queue padded with the HW drop sentinel: a claim past the end reads it
-    pixq_pad = torch.cat([pix_queue, torch.full((B,), HW, dtype=torch.int64,
-                                                device=dev)])
-    lanes = torch.arange(B, dtype=torch.int64, device=dev)
-    pid = pix_queue[torch.clamp(lanes, max=S - 1)]
-    rid, o, d = ray_of(pid, lanes)
-    issued = torch.tensor(min(B, S), dtype=torch.int64, device=dev)
-    tp = torch.ones((B, 3), dtype=torch.float32, device=dev)
-    col = torch.zeros((B, 3), dtype=torch.float32, device=dev)
-    alive = lanes < S
-    hdb = torch.zeros((B,), dtype=torch.bool, device=dev)
-    absorb = torch.zeros((B, 3), dtype=torch.float32, device=dev)
-    bounce = torch.zeros((B,), dtype=torch.int64, device=dev)
-    k_lane = torch.zeros((B,), dtype=torch.int64, device=dev)
+    q, ln = rg.start(pix_queue, B, width, height, seed, rid_base, settings, camera, acc, cnt)
     it = 0
 
     while True:
         with span("sync.queue_alive"):
-            if not bool(alive.any()):
+            if not bool(ln.alive.any()):
                 break
         with span("queue.iter"):
-            was = alive
-            (o, d, tp, col, alive, hdb, absorb), step_cost = _bounce_step(
-                prep, scene, settings, light_tab, o, d, tp, col, was, hdb,
-                absorb, bounce * _SLOTS_PER_BOUNCE, rid, seed,
+            was = ln.alive
+            (ln.o, ln.d, ln.tp, ln.col, ln.alive, ln.hdb, ln.absorb), step_cost = _bounce_step(
+                prep, scene, settings, light_tab, ln.o, ln.d, ln.tp, ln.col, was, ln.hdb,
+                ln.absorb, ln.bounce * _SLOTS_PER_BOUNCE, ln.rid, seed,
                 packed_rows=packed_rows, photon_grid=photon_grid)
             lane_cost += step_cost
-            bounce = bounce + 1
-
+            ln.bounce = ln.bounce + 1
             with span("regen"):
-                # a path is done when it died this step or hit the bounce cap
-                done = was & (~alive | (bounce >= settings.max_bounces))
-                alive = alive & ~done
-
-                # add finished paths to the frame
-                dst = torch.where(done, pid, HW)
-                acc.index_add_(0, dst, col)
-                cnt.index_add_(0, dst, done.to(torch.int32))
-                k_lane = k_lane + done
-
-                # regenerate: finished lanes with capacity left claim the next
-                # queue slots in lane order
-                claimable = done & (k_lane < K)
-                ranks = torch.cumsum(claimable, 0) - 1
-                sidx = issued + ranks
-                can = claimable & (sidx < S)
-                # the JAX version's dynamic slice of B entries at the claim
-                # cursor, then a rank-indexed pick, as one gather
-                pick = torch.clamp(issued, max=S) + torch.clamp(ranks, 0, B - 1)
-                pid_n = torch.clamp(pixq_pad[pick], max=HW)
-                rid_n, o_n, d_n = ray_of(pid_n, sidx)
-                issued = torch.clamp(issued + ranks[-1] + 1, max=S)
-
-                can3 = can[:, None]
-                o = torch.where(can3, o_n, o)
-                d = torch.where(can3, d_n, d)
-                tp = torch.where(can3, 1.0, tp)
-                col = torch.where(can3, 0.0, col)
-                alive = alive | can
-                hdb = hdb & ~can
-                absorb = torch.where(can3, 0.0, absorb)
-                bounce = torch.where(can, 0, bounce)
-                pid = torch.where(can, pid_n, pid)
-                rid = torch.where(can, rid_n, rid)
+                rgk.fused_regen(q, ln, was=was)
         it += 1
     return _ret(it)
 

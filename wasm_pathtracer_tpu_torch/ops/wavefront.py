@@ -18,8 +18,10 @@ by one step:
          (``integrator._shade_core``), which may leave a pending NEE
          shadow query: the lane then traces that ray through the same
          SCAN/PROBE steps and resolves the occlusion when it finishes;
-  REGEN  a finished path adds its radiance to the frame (``index_add_``)
-         and the lane claims the next queue slot, as in ``render_queue``.
+  REGEN  a finished path adds its radiance to the frame and the lane
+         claims the next queue slot, as in ``render_queue`` and by the
+         same code (``ops/regen.py``; one launch of the regen kernel an
+         iteration on the card).
 
 The visit order, the bounds, the claim order and the RNG keying are the
 JAX loop's, so per-path radiance equals ``render_queue``'s on the same
@@ -37,11 +39,12 @@ import dataclasses
 import torch
 
 from wasm_pathtracer_tpu_torch.config import RenderSettings
-from wasm_pathtracer_tpu_torch.models.camera import Camera, primary_rays
+from wasm_pathtracer_tpu_torch.models.camera import Camera
 from wasm_pathtracer_tpu_torch.ops import integrator as itg
 from wasm_pathtracer_tpu_torch.ops import probe_kernels as pk
+from wasm_pathtracer_tpu_torch.ops import regen as rg
+from wasm_pathtracer_tpu_torch.ops import regen_kernels as rgk
 from wasm_pathtracer_tpu_torch.ops import trace as tr
-from wasm_pathtracer_tpu_torch.utils import rng as rnglib
 from wasm_pathtracer_tpu_torch.utils import vecmath as vm
 from wasm_pathtracer_tpu_torch.utils.spans import span
 
@@ -98,40 +101,16 @@ def render_queue_flat(prep: tr.ScenePrep, scene, settings: RenderSettings,
     eps = settings.epsilon
     f32, i64 = torch.float32, torch.int64
     inf = torch.inf
-    # the JAX version's lane-ring capacity: bounds how many paths one lane
-    # may finish, and so which lanes may claim
-    K = -(-S // B)
-    K += max(2, K // 2)
-
-    def ray_of(pid, sidx):
-        rid = (rid_base + sidx) & 0xFFFFFFFF
-        jx, jy, _ = rnglib.uniform3(seed, rid, itg.SLOT_JITTER)
-        o, d = primary_rays(camera, pid % width, pid // width, jx, jy,
-                            width, height, settings.screen_z)
-        return rid, o.contiguous(), d.contiguous()
-
-    # queue padded with the HW drop sentinel: a claim past the end reads it
-    pixq_pad = torch.cat([pix_queue, torch.full((B,), HW, dtype=i64, device=dev)])
-    lanes = torch.arange(B, dtype=i64, device=dev)
-    pid = pix_queue[torch.clamp(lanes, max=S - 1)]
-    rid, o, d = ray_of(pid, lanes)
-    issued = torch.tensor(min(B, S), dtype=i64, device=dev)
-    live = lanes < S
-    # path registers
-    tp = torch.ones((B, 3), dtype=f32, device=dev)
-    col = torch.zeros((B, 3), dtype=f32, device=dev)
-    hdb = torch.zeros((B,), dtype=torch.bool, device=dev)
-    absorb = torch.zeros((B, 3), dtype=f32, device=dev)
-    bounce = torch.zeros((B,), dtype=i64, device=dev)
-    k_lane = torch.zeros((B,), dtype=i64, device=dev)
-    # trace registers: the ray being traced, its best hit, the lex cursor
-    tr_o, tr_d = o, d
-    shadow = torch.zeros((B,), dtype=torch.bool, device=dev)
+    q, ln = rg.start(pix_queue, B, width, height, seed, rid_base, settings, camera, acc, cnt)
+    # trace registers: the ray being traced (its own copy: the regen kernel
+    # writes registers in place), its best hit, the lex cursor
+    ln.tr_o, ln.tr_d = ln.o.clone(), ln.d.clone()
+    ln.shadow = torch.zeros((B,), dtype=torch.bool, device=dev)
+    ln.need_scan = ln.alive.clone()
     t_best = torch.full((B,), inf, dtype=f32, device=dev)
     sid_best = torch.full((B,), -1, dtype=i64, device=dev)
     skip_e = torch.full((B,), -inf, dtype=f32, device=dev)
     skip_c = torch.full((B,), -1, dtype=torch.int32, device=dev)
-    need_scan = live.clone()
     # the pending NEE query, set at shade and read at resolve
     pend_contrib = torch.zeros((B, 3), dtype=f32, device=dev)
     pend_dist = torch.zeros((B,), dtype=f32, device=dev)
@@ -141,12 +120,13 @@ def render_queue_flat(prep: tr.ScenePrep, scene, settings: RenderSettings,
 
     while True:
         with span("sync.queue_alive"):
-            if not bool(live.any()):
+            if not bool(ln.alive.any()):
                 break
         with span("queue.iter"):
+            live, shadow, tr_o, tr_d = ln.alive, ln.shadow, ln.tr_o, ln.tr_d
             with span("trace"):
                 # ---- SCAN: fresh traces reset the cursor and take the dense hit
-                scan = live & need_scan
+                scan = live & ln.need_scan
                 skip_e = torch.where(scan, -inf, skip_e)
                 skip_c = torch.where(scan, -1, skip_c)
                 if fused_scan:
@@ -195,26 +175,26 @@ def render_queue_flat(prep: tr.ScenePrep, scene, settings: RenderSettings,
             with span("shade"):
                 # ---- RESOLVE finished shadow queries
                 resolve = done & shadow
-                col = col + torch.where((resolve & ~occluded)[:, None], pend_contrib, 0.0)
+                col = ln.col + torch.where((resolve & ~occluded)[:, None], pend_contrib, 0.0)
 
                 # ---- SHADE finished primary traces
                 shade = done & ~shadow
-                (o_n, d_n, tp_n, col, alive_n, hdb_n, absorb_n), req = itg._shade_core(
-                    scene, settings, light_tab, tr_o, tr_d, tp, col, shade, hdb, absorb,
-                    bounce * itg._SLOTS_PER_BOUNCE, rid, seed, t_best, sid_best,
-                    torch.isfinite(t_best), packed_rows=packed_rows,
+                (o_n, d_n, tp_n, ln.col, alive_n, hdb_n, absorb_n), req = itg._shade_core(
+                    scene, settings, light_tab, tr_o, tr_d, ln.tp, col, shade, ln.hdb,
+                    ln.absorb, ln.bounce * itg._SLOTS_PER_BOUNCE, ln.rid, seed, t_best,
+                    sid_best, torch.isfinite(t_best), packed_rows=packed_rows,
                     photon_grid=photon_grid)
                 # adopt the estimator's updates on shade lanes only: elsewhere
                 # (o_n, d_n) is the ray in flight, and the throughput update is
                 # only meaningful where a hit was shaded
                 sh3 = shade[:, None]
-                o = torch.where(sh3, o_n, o)
-                d = torch.where(sh3, d_n, d)
-                tp = torch.where(sh3, tp_n, tp)
-                absorb = torch.where(sh3, absorb_n, absorb)
-                hdb = torch.where(shade, hdb_n, hdb)
-                bounce = bounce + shade
-                cont_shade = alive_n & (bounce < settings.max_bounces)
+                ln.o = torch.where(sh3, o_n, ln.o)
+                ln.d = torch.where(sh3, d_n, ln.d)
+                ln.tp = torch.where(sh3, tp_n, ln.tp)
+                ln.absorb = torch.where(sh3, absorb_n, ln.absorb)
+                ln.hdb = torch.where(shade, hdb_n, ln.hdb)
+                ln.bounce = ln.bounce + shade
+                cont_shade = alive_n & (ln.bounce < settings.max_bounces)
 
                 if req is not None:
                     pend = shade & req["need"]
@@ -232,44 +212,7 @@ def render_queue_flat(prep: tr.ScenePrep, scene, settings: RenderSettings,
                 pend_cont = torch.where(shade, cont_shade, pend_cont)
 
             with span("regen"):
-                # ---- FINALIZE: the bounce is complete (shadow resolved or none)
-                fin = resolve | (shade & ~pend)
-                cont = fin & torch.where(shadow, cont_prev, cont_shade)
-                end = fin & ~cont
-                acc.index_add_(0, torch.where(end, pid, HW), col)
-                cnt.index_add_(0, torch.where(end, pid, HW), end.to(torch.int32))
-                k_lane = k_lane + end
-
-                # ---- REGEN: finished lanes with capacity left claim the next
-                # queue slots in lane order
-                claimable = end & (k_lane < K)
-                ranks = torch.cumsum(claimable, 0) - 1
-                sidx = issued + ranks
-                can = claimable & (sidx < S)
-                pick = torch.clamp(issued, max=S) + torch.clamp(ranks, 0, B - 1)
-                pid_n = torch.clamp(pixq_pad[pick], max=HW)
-                rid_n, o_p, d_p = ray_of(pid_n, sidx)
-                issued = torch.clamp(issued + ranks[-1] + 1, max=S)
-
-                # next traced ray: shadow query > new primary > next bounce
-                can3, cont3 = can[:, None], cont[:, None]
-                tr_o = torch.where(pend[:, None], o_sh,
-                                   torch.where(can3, o_p, torch.where(cont3, o, tr_o)))
-                tr_d = torch.where(pend[:, None], d_sh,
-                                   torch.where(can3, d_p, torch.where(cont3, d, tr_d)))
-                tr_o, tr_d = tr_o.contiguous(), tr_d.contiguous()
-                start = pend | can | cont
-                o = torch.where(can3, o_p, o)
-                d = torch.where(can3, d_p, d)
-                tp = torch.where(can3, 1.0, tp)
-                col = torch.where(can3, 0.0, col)
-                hdb = hdb & ~can
-                absorb = torch.where(can3, 0.0, absorb)
-                bounce = torch.where(can, 0, bounce)
-                pid = torch.where(can, pid_n, pid)
-                rid = torch.where(can, rid_n, rid)
-                live = (live & ~end) | can
-                shadow = torch.where(start, pend, shadow)
-                need_scan = start
+                rgk.fused_regen(q, ln, fin=rg.Finalize(resolve, shade, pend, cont_prev,
+                                                       cont_shade, o_sh, d_sh))
         it += 1
     return _ret(it)
