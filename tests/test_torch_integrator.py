@@ -137,23 +137,6 @@ def test_render_pixels_matches_jax():
     assert close.mean() >= 0.99
 
 
-def test_render_queue_empty_and_zero_bounce():
-    scene = tscenes.sphere_plane(device="cpu")
-    prep = ttrace.prepare(scene)
-    cam = Camera.create(*CAMERAS["sphere_plane"], device="cpu")
-    W = H = 8
-    st = RenderSettings(render_type=RenderType.NO_NEE, max_bounces=4)
-    acc, cnt, cost, its = tint.render_queue(prep, scene, st, cam,
-                                            torch.zeros(0, dtype=torch.int64),
-                                            W, H, 3, 32, return_iters=True)
-    assert int(cnt.sum()) == 0 and float(acc.abs().sum()) == 0.0 and its == 0
-    st0 = RenderSettings(render_type=RenderType.NO_NEE, max_bounces=0)
-    acc, cnt, cost = tint.render_queue(prep, scene, st0, cam, torch.arange(W * H),
-                                       W, H, 3, 32)
-    assert (cnt == 1).all()
-    assert float(acc.abs().sum()) == 0.0 and int(cost.sum()) == 0
-
-
 @pytest.mark.parametrize("kw", [dict(render_type=RenderType.PNEE),
                                 dict(edge_aware_nee=True)])
 def test_unported_estimators_raise(kw):

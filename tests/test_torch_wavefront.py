@@ -34,6 +34,7 @@ from wasm_pathtracer_tpu.ops import bvh as jbvh
 from wasm_pathtracer_tpu.ops import trace as jtrace
 from wasm_pathtracer_tpu.ops import wavefront as jwave
 from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
+from wasm_pathtracer_tpu_torch.models import scenes as tscenes
 from wasm_pathtracer_tpu_torch.models.camera import Camera
 from wasm_pathtracer_tpu_torch.models.scene import TENSOR_FIELDS, scene_from_numpy
 from wasm_pathtracer_tpu_torch.ops import bvh as tbvh
@@ -146,24 +147,35 @@ def test_flat_queue_shorter_than_lanes():
     _assert_paths_close(ref, out)
 
 
-def test_flat_edge_cases():
-    j = _cloud_scene(n_tri=100)
-    t = _to_torch(j)
-    prep = tbvh.attach_clusters(ttrace.prepare(t), t, **CLOUD)
-    cam = Camera.create(*CLOUD_CAMERA, device="cpu")
-    st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=4)
-    W = H = 16
-    # empty queue
-    a, c, k, its = twave.render_queue_flat(prep, t, st, cam, torch.zeros(0, dtype=torch.int64),
-                                           W, H, 1, 64, return_iters=True)
+@pytest.mark.parametrize("route", ["queue", "flat"])
+def test_queue_empty_and_zero_bounce(route):
+    """The edge cases of the one queue loop, on either route: an empty
+    queue renders nothing in no iteration; a zero bounce cap advances the
+    counts, leaves the radiance black and does no work.  The flat route
+    refuses a prep without clusters."""
+    if route == "flat":
+        t = _to_torch(_cloud_scene(n_tri=100))
+        prep = tbvh.attach_clusters(ttrace.prepare(t), t, **CLOUD)
+        cam = Camera.create(*CLOUD_CAMERA, device="cpu")
+        st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=4)
+        fn, W, seed, lanes = twave.render_queue_flat, 16, 1, 64
+    else:
+        t = tscenes.sphere_plane(device="cpu")
+        prep = ttrace.prepare(t)
+        cam = Camera.create((0.0, 1.5, -2.0), 0.25, 0.0, device="cpu")
+        st = RenderSettings(render_type=RenderType.NO_NEE, max_bounces=4)
+        fn, W, seed, lanes = tint.render_queue, 8, 3, 32
+    H = W
+    a, c, k, its = fn(prep, t, st, cam, torch.zeros(0, dtype=torch.int64), W, H, seed, lanes,
+                      return_iters=True)
     assert float(a.abs().sum()) == 0.0 and int(c.sum()) == 0 and its == 0
-    assert a.shape == (W * H, 3) and k.shape == (64,)
-    # zero bounce cap: counts advance, radiance stays black, no work
-    a, c, k = twave.render_queue_flat(prep, t, st.replace(max_bounces=0), cam,
-                                      torch.arange(W * H), W, H, 1, 64)
+    assert a.shape == (W * H, 3) and k.shape == (lanes,)
+    a, c, k = fn(prep, t, st.replace(max_bounces=0), cam, torch.arange(W * H), W, H, seed,
+                 lanes)
     assert float(a.abs().sum()) == 0.0 and (c == 1).all() and int(k.sum()) == 0
-    with pytest.raises(ValueError):
-        twave.render_queue_flat(ttrace.prepare(t), t, st, cam, torch.arange(4), W, H, 1, 4)
+    if route == "flat":
+        with pytest.raises(ValueError):
+            fn(ttrace.prepare(t), t, st, cam, torch.arange(4), W, H, 1, 4)
 
 
 def test_flat_lane_count_independent():

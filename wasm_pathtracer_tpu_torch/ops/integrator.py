@@ -36,6 +36,7 @@ shadow-boundary warp of ``ops.edges``.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -121,15 +122,6 @@ def _light_table(scene: SceneData):
          torch.zeros((lrows.shape[0], 3), dtype=torch.float32,
                      device=lrows.device)], dim=1)
     return lpack, max(scene.num_lights, 1)
-
-
-def _check_supported(settings: RenderSettings):
-    """The forward drivers (:func:`render_queue`, the flat wavefront)
-    refuse the gradient-only edge-aware NEE."""
-    if settings.edge_aware_nee:
-        raise NotImplementedError("edge-aware NEE is a gradient switch: "
-                                  "render through integrator.render_pixels "
-                                  "or trace_paths")
 
 
 def _shade_core(scene: SceneData, settings: RenderSettings, light_tab,
@@ -467,10 +459,8 @@ def render_queue(prep, scene, settings: RenderSettings, camera: Camera,
     the loop, this one adds them to the frame as they finish
     (``ops/regen.py``; on the card one launch of the regen kernel an
     iteration, ``ops/regen_kernels.py``), so float sums may be taken in
-    another order.
-
-    The loop condition reads ``alive.any()`` on the host once per
-    iteration; nothing else in the loop waits for the device.
+    another order.  The loop is :func:`_run_queue`; this route's
+    iteration is one :func:`_bounce_step` of every lane.
 
     Args:
       pix_queue: (S,) integer pixel ids (y * width + x).
@@ -485,51 +475,90 @@ def render_queue(prep, scene, settings: RenderSettings, camera: Camera,
     (n_lanes,) int64 per-lane primitive-test counts), plus the number of
     loop iterations with ``return_iters``.
     """
-    _check_supported(settings)
+    def step(q, ln, c, light_tab, packed_rows):
+        was = ln.alive
+        (ln.o, ln.d, ln.tp, ln.col, ln.alive, ln.hdb, ln.absorb), step_cost = _bounce_step(
+            prep, scene, settings, light_tab, ln.o, ln.d, ln.tp, ln.col, was, ln.hdb,
+            ln.absorb, ln.bounce * _SLOTS_PER_BOUNCE, ln.rid, seed,
+            packed_rows=packed_rows, photon_grid=photon_grid)
+        c.cost += step_cost
+        ln.bounce = ln.bounce + 1
+        return was, None
+
+    return _run_queue(step, scene, settings, camera, pix_queue, width, height, seed,
+                      n_lanes, rid_base, return_iters, iters_out)
+
+
+@dataclasses.dataclass
+class _Carry:
+    """What a queue iteration carries beside regeneration's registers
+    (``regen.Lanes``): the lane cost, and the flat route's trace and
+    pending-NEE registers, None on :func:`render_queue`'s route."""
+
+    cost: torch.Tensor                        # (B,) int64 primitive tests
+    t_best: torch.Tensor | None = None        # best hit of the ray being traced
+    sid_best: torch.Tensor | None = None
+    skip_e: torch.Tensor | None = None        # its lex cursor
+    skip_c: torch.Tensor | None = None
+    pend_contrib: torch.Tensor | None = None  # the pending NEE query
+    pend_dist: torch.Tensor | None = None
+    pend_lsid: torch.Tensor | None = None
+    pend_cont: torch.Tensor | None = None
+
+
+def _run_queue(step, scene, settings: RenderSettings, camera: Camera, pix_queue,
+               width: int, height: int, seed, n_lanes: int, rid_base, return_iters,
+               iters_out, init=None):
+    """The regenerating queue loop of both routes, :func:`render_queue`
+    and ``wavefront.render_queue_flat``, with their arguments and returns.
+
+    ``step(q, ln, c, light_tab, packed_rows)`` is a route's iteration up
+    to regeneration: it advances the lanes ``ln`` (``regen.Lanes``) and
+    its own carries ``c`` (:class:`_Carry`) and returns regeneration's
+    ``(was, fin)``; ``init(ln, c)`` adds the route's own registers before
+    the first iteration.  Every carry of the loop lives on ``ln`` or
+    ``c`` and the queue ``q`` is never rebound, so an iteration reads and
+    writes those three only: a CUDA graph of one iteration goes here.
+    The loop condition reads ``alive.any()`` on the host once per
+    iteration; nothing else in the loop waits for the device.
+    """
+    if settings.edge_aware_nee:
+        raise NotImplementedError("edge-aware NEE is a gradient switch: "
+                                  "render through integrator.render_pixels "
+                                  "or trace_paths")
     dev = pix_queue.device
     S = pix_queue.shape[0]
-    B = n_lanes
+    pix_queue = pix_queue.to(torch.int64)
     HW = width * height
     # row HW of the frame collects the lanes that finish nothing
     acc = torch.zeros((HW + 1, 3), dtype=torch.float32, device=dev)
     cnt = torch.zeros((HW + 1,), dtype=torch.int32, device=dev)
-    lane_cost = torch.zeros((B,), dtype=torch.int64, device=dev)
-
-    def _ret(its):
-        if iters_out is not None:
-            iters_out.append(its)
-        out = (acc[:HW], cnt[:HW], lane_cost)
-        return out + (its,) if return_iters else out
-
-    if S == 0:
-        return _ret(0)
-    pix_queue = pix_queue.to(torch.int64)
-    if settings.max_bounces == 0:
+    cost = torch.zeros((n_lanes,), dtype=torch.int64, device=dev)
+    it = 0
+    if S and settings.max_bounces == 0:
         # zero bounces contribute nothing, but every sample is counted
         cnt.index_add_(0, pix_queue, torch.ones_like(pix_queue, dtype=torch.int32))
-        return _ret(0)
-
-    light_tab = _light_table(scene)
-    packed_rows = tr.pack_hit_rows(scene)
-    q, ln = rg.start(pix_queue, B, width, height, seed, rid_base, settings, camera, acc, cnt)
-    it = 0
-
-    while True:
-        with span("sync.queue_alive"):
-            if not bool(ln.alive.any()):
-                break
-        with span("queue.iter"):
-            was = ln.alive
-            (ln.o, ln.d, ln.tp, ln.col, ln.alive, ln.hdb, ln.absorb), step_cost = _bounce_step(
-                prep, scene, settings, light_tab, ln.o, ln.d, ln.tp, ln.col, was, ln.hdb,
-                ln.absorb, ln.bounce * _SLOTS_PER_BOUNCE, ln.rid, seed,
-                packed_rows=packed_rows, photon_grid=photon_grid)
-            lane_cost += step_cost
-            ln.bounce = ln.bounce + 1
-            with span("regen"):
-                rgk.fused_regen(q, ln, was=was)
-        it += 1
-    return _ret(it)
+    elif S:
+        light_tab = _light_table(scene)
+        packed_rows = tr.pack_hit_rows(scene)
+        q, ln = rg.start(pix_queue, n_lanes, width, height, seed, rid_base, settings, camera,
+                         acc, cnt)
+        c = _Carry(cost)
+        if init is not None:
+            init(ln, c)
+        while True:
+            with span("sync.queue_alive"):
+                if not bool(ln.alive.any()):
+                    break
+            with span("queue.iter"):
+                was, fin = step(q, ln, c, light_tab, packed_rows)
+                with span("regen"):
+                    rgk.fused_regen(q, ln, was=was, fin=fin)
+            it += 1
+    if iters_out is not None:
+        iters_out.append(it)
+    out = (acc[:HW], cnt[:HW], cost)
+    return out + (it,) if return_iters else out
 
 
 def trace_depth(prep, scene, o, d):

@@ -28,8 +28,8 @@ JAX loop's, so per-path radiance equals ``render_queue``'s on the same
 queue.  The TPU version's lane ring, winner-row carry and material
 palette were there to avoid scatters and gathers on the TPU; this loop
 splats finished paths as they finish and shades from the shape's packed
-row.  The loop condition reads ``live.any()`` on the host once per
-iteration.
+row.  The loop itself is ``render_queue``'s, ``integrator._run_queue``;
+this module holds the flat route's registers and its iteration.
 """
 
 from __future__ import annotations
@@ -43,7 +43,6 @@ from wasm_pathtracer_tpu_torch.models.camera import Camera
 from wasm_pathtracer_tpu_torch.ops import integrator as itg
 from wasm_pathtracer_tpu_torch.ops import probe_kernels as pk
 from wasm_pathtracer_tpu_torch.ops import regen as rg
-from wasm_pathtracer_tpu_torch.ops import regen_kernels as rgk
 from wasm_pathtracer_tpu_torch.ops import trace as tr
 from wasm_pathtracer_tpu_torch.utils import vecmath as vm
 from wasm_pathtracer_tpu_torch.utils.spans import span
@@ -56,43 +55,14 @@ def render_queue_flat(prep: tr.ScenePrep, scene, settings: RenderSettings,
     """Persistent wavefront with flattened cluster traversal.
 
     The contract of :func:`ops.integrator.render_queue` (same queue
-    semantics, RNG keying, returns and ``iters_out``); ``prep`` must
-    carry a cluster structure.
-
-    Returns (color_sum (H*W, 3), n_samples (H*W,) int32, lane_cost
-    (n_lanes,) int64), plus the number of loop iterations with
-    ``return_iters``.
+    semantics, RNG keying, arguments and returns); ``prep`` must carry a
+    cluster structure.
     """
     if prep.cluster is None:
         raise ValueError("render_queue_flat needs a prep with clusters "
                          "(ops.bvh.attach_clusters)")
-    itg._check_supported(settings)
     cs = prep.cluster
-    dev = pix_queue.device
-    S = pix_queue.shape[0]
-    B = n_lanes
     G = cs.group
-    HW = width * height
-    # row HW of the frame collects the lanes that finish nothing
-    acc = torch.zeros((HW + 1, 3), dtype=torch.float32, device=dev)
-    cnt = torch.zeros((HW + 1,), dtype=torch.int32, device=dev)
-    cost = torch.zeros((B,), dtype=torch.int64, device=dev)
-
-    def _ret(its):
-        if iters_out is not None:
-            iters_out.append(its)
-        out = (acc[:HW], cnt[:HW], cost)
-        return out + (its,) if return_iters else out
-
-    if S == 0:
-        return _ret(0)
-    pix_queue = pix_queue.to(torch.int64)
-    if settings.max_bounces == 0:
-        cnt.index_add_(0, pix_queue, torch.ones_like(pix_queue, dtype=torch.int32))
-        return _ret(0)
-
-    light_tab = itg._light_table(scene)
-    packed_rows = tr.pack_hit_rows(scene)
     n_dense = sum(prep.tables.counts)
     # K3 folds a dense remainder of <= 64 shapes into the select; a larger
     # one runs through the scene kernel beside K6, and none needs no scan
@@ -101,118 +71,113 @@ def render_queue_flat(prep: tr.ScenePrep, scene, settings: RenderSettings,
     eps = settings.epsilon
     f32, i64 = torch.float32, torch.int64
     inf = torch.inf
-    q, ln = rg.start(pix_queue, B, width, height, seed, rid_base, settings, camera, acc, cnt)
-    # trace registers: the ray being traced (its own copy: the regen kernel
-    # writes registers in place), its best hit, the lex cursor
-    ln.tr_o, ln.tr_d = ln.o.clone(), ln.d.clone()
-    ln.shadow = torch.zeros((B,), dtype=torch.bool, device=dev)
-    ln.need_scan = ln.alive.clone()
-    t_best = torch.full((B,), inf, dtype=f32, device=dev)
-    sid_best = torch.full((B,), -1, dtype=i64, device=dev)
-    skip_e = torch.full((B,), -inf, dtype=f32, device=dev)
-    skip_c = torch.full((B,), -1, dtype=torch.int32, device=dev)
-    # the pending NEE query, set at shade and read at resolve
-    pend_contrib = torch.zeros((B, 3), dtype=f32, device=dev)
-    pend_dist = torch.zeros((B,), dtype=f32, device=dev)
-    pend_lsid = torch.zeros((B,), dtype=i64, device=dev)
-    pend_cont = torch.zeros((B,), dtype=torch.bool, device=dev)
-    it = 0
 
-    while True:
-        with span("sync.queue_alive"):
-            if not bool(ln.alive.any()):
-                break
-        with span("queue.iter"):
-            live, shadow, tr_o, tr_d = ln.alive, ln.shadow, ln.tr_o, ln.tr_d
-            with span("trace"):
-                # ---- SCAN: fresh traces reset the cursor and take the dense hit
-                scan = live & ln.need_scan
-                skip_e = torch.where(scan, -inf, skip_e)
-                skip_c = torch.where(scan, -1, skip_c)
-                if fused_scan:
-                    e_cur, c_cur, e_b, c_b, e_aft, t_d, sid_d = pk.select_scan(
-                        cs, prep, tr_o, tr_d, skip_e, skip_c)
-                    c_d = n_dense
+    def init(ln, c):
+        B, dev = ln.pid.shape[0], ln.pid.device
+        # trace registers: the ray being traced (its own copy: the regen kernel
+        # writes registers in place), its best hit, the lex cursor
+        ln.tr_o, ln.tr_d = ln.o.clone(), ln.d.clone()
+        ln.shadow = torch.zeros((B,), dtype=torch.bool, device=dev)
+        ln.need_scan = ln.alive.clone()
+        c.t_best = torch.full((B,), inf, dtype=f32, device=dev)
+        c.sid_best = torch.full((B,), -1, dtype=i64, device=dev)
+        c.skip_e = torch.full((B,), -inf, dtype=f32, device=dev)
+        c.skip_c = torch.full((B,), -1, dtype=torch.int32, device=dev)
+        # the pending NEE query, set at shade and read at resolve
+        c.pend_contrib = torch.zeros((B, 3), dtype=f32, device=dev)
+        c.pend_dist = torch.zeros((B,), dtype=f32, device=dev)
+        c.pend_lsid = torch.zeros((B,), dtype=i64, device=dev)
+        c.pend_cont = torch.zeros((B,), dtype=torch.bool, device=dev)
+
+    def step(q, ln, c, light_tab, packed_rows):
+        live, shadow, tr_o, tr_d = ln.alive, ln.shadow, ln.tr_o, ln.tr_d
+        with span("trace"):
+            # ---- SCAN: fresh traces reset the cursor and take the dense hit
+            scan = live & ln.need_scan
+            c.skip_e = torch.where(scan, -inf, c.skip_e)
+            c.skip_c = torch.where(scan, -1, c.skip_c)
+            if fused_scan:
+                e_cur, c_cur, e_b, c_b, e_aft, t_d, sid_d = pk.select_scan(
+                    cs, prep, tr_o, tr_d, c.skip_e, c.skip_c)
+                c_d = n_dense
+            else:
+                e_cur, c_cur, e_b, c_b, e_aft = pk.select_blocks(
+                    cs, tr_o, tr_d, c.skip_e, c.skip_c)
+                if n_dense:
+                    t_d, sid_d, _, c_d = tr.trace_scene(prep_dense, scene, tr_o, tr_d)
                 else:
-                    e_cur, c_cur, e_b, c_b, e_aft = pk.select_blocks(
-                        cs, tr_o, tr_d, skip_e, skip_c)
-                    if n_dense:
-                        t_d, sid_d, _, c_d = tr.trace_scene(prep_dense, scene, tr_o, tr_d)
-                    else:
-                        t_d, sid_d, c_d = inf, -1, 0
-                t_best = torch.where(scan, t_d, t_best)
-                sid_best = torch.where(scan, sid_d, sid_best)
-                cost += torch.where(scan, c_d, 0)
+                    t_d, sid_d, c_d = inf, -1, 0
+            c.t_best = torch.where(scan, t_d, c.t_best)
+            c.sid_best = torch.where(scan, sid_d, c.sid_best)
+            c.cost += torch.where(scan, c_d, 0)
 
-                # ---- PROBE x2: the next two clusters in (entry, id) order
-                bound = torch.where(shadow, torch.minimum(t_best, pend_dist), t_best)
-                probing = live & (e_cur < bound)
-                skip_e = torch.where(probing, e_cur, skip_e)
-                skip_c = torch.where(probing, c_cur, skip_c)
-                t1, s1, t2, s2 = pk.probe_pair(cs, tr_o, tr_d, c_cur, c_b)
-                better = probing & (t1 < t_best)
-                t_best = torch.where(better, t1, t_best)
-                sid_best = torch.where(better, s1, sid_best)
-                cost += torch.where(probing, G, 0)
-                # the second round against the bound tightened by the first
-                bound = torch.where(shadow, torch.minimum(t_best, pend_dist), t_best)
-                probing2 = probing & (e_b < bound)
-                skip_e = torch.where(probing2, e_b, skip_e)
-                skip_c = torch.where(probing2, c_b, skip_c)
-                better2 = probing2 & (t2 < t_best)
-                t_best = torch.where(better2, t2, t_best)
-                sid_best = torch.where(better2, s2, sid_best)
-                cost += torch.where(probing2, G, 0)
+            # ---- PROBE x2: the next two clusters in (entry, id) order
+            bound = torch.where(shadow, torch.minimum(c.t_best, c.pend_dist), c.t_best)
+            probing = live & (e_cur < bound)
+            c.skip_e = torch.where(probing, e_cur, c.skip_e)
+            c.skip_c = torch.where(probing, c_cur, c.skip_c)
+            t1, s1, t2, s2 = pk.probe_pair(cs, tr_o, tr_d, c_cur, c_b)
+            better = probing & (t1 < c.t_best)
+            c.t_best = torch.where(better, t1, c.t_best)
+            c.sid_best = torch.where(better, s1, c.sid_best)
+            c.cost += torch.where(probing, G, 0)
+            # the second round against the bound tightened by the first
+            bound = torch.where(shadow, torch.minimum(c.t_best, c.pend_dist), c.t_best)
+            probing2 = probing & (e_b < bound)
+            c.skip_e = torch.where(probing2, e_b, c.skip_e)
+            c.skip_c = torch.where(probing2, c_b, c.skip_c)
+            better2 = probing2 & (t2 < c.t_best)
+            c.t_best = torch.where(better2, t2, c.t_best)
+            c.sid_best = torch.where(better2, s2, c.sid_best)
+            c.cost += torch.where(probing2, G, 0)
 
-                # ---- completion: the next candidate lies beyond the bound, or a
-                # shadow query already found a blocker before its light
-                e_next = torch.where(probing2, e_aft, torch.where(probing, e_b, e_cur))
-                bound = torch.where(shadow, torch.minimum(t_best, pend_dist), t_best)
-                occluded = torch.isfinite(t_best) & (t_best < pend_dist) \
-                    & (sid_best != pend_lsid)
-                done = live & ((e_next >= bound) | (shadow & occluded))
+            # ---- completion: the next candidate lies beyond the bound, or a
+            # shadow query already found a blocker before its light
+            e_next = torch.where(probing2, e_aft, torch.where(probing, e_b, e_cur))
+            bound = torch.where(shadow, torch.minimum(c.t_best, c.pend_dist), c.t_best)
+            occluded = torch.isfinite(c.t_best) & (c.t_best < c.pend_dist) \
+                & (c.sid_best != c.pend_lsid)
+            done = live & ((e_next >= bound) | (shadow & occluded))
 
-            with span("shade"):
-                # ---- RESOLVE finished shadow queries
-                resolve = done & shadow
-                col = ln.col + torch.where((resolve & ~occluded)[:, None], pend_contrib, 0.0)
+        with span("shade"):
+            # ---- RESOLVE finished shadow queries
+            resolve = done & shadow
+            col = ln.col + torch.where((resolve & ~occluded)[:, None], c.pend_contrib, 0.0)
 
-                # ---- SHADE finished primary traces
-                shade = done & ~shadow
-                (o_n, d_n, tp_n, ln.col, alive_n, hdb_n, absorb_n), req = itg._shade_core(
-                    scene, settings, light_tab, tr_o, tr_d, ln.tp, col, shade, ln.hdb,
-                    ln.absorb, ln.bounce * itg._SLOTS_PER_BOUNCE, ln.rid, seed, t_best,
-                    sid_best, torch.isfinite(t_best), packed_rows=packed_rows,
-                    photon_grid=photon_grid)
-                # adopt the estimator's updates on shade lanes only: elsewhere
-                # (o_n, d_n) is the ray in flight, and the throughput update is
-                # only meaningful where a hit was shaded
-                sh3 = shade[:, None]
-                ln.o = torch.where(sh3, o_n, ln.o)
-                ln.d = torch.where(sh3, d_n, ln.d)
-                ln.tp = torch.where(sh3, tp_n, ln.tp)
-                ln.absorb = torch.where(sh3, absorb_n, ln.absorb)
-                ln.hdb = torch.where(shade, hdb_n, ln.hdb)
-                ln.bounce = ln.bounce + shade
-                cont_shade = alive_n & (ln.bounce < settings.max_bounces)
+            # ---- SHADE finished primary traces
+            shade = done & ~shadow
+            (o_n, d_n, tp_n, ln.col, alive_n, hdb_n, absorb_n), req = itg._shade_core(
+                scene, settings, light_tab, tr_o, tr_d, ln.tp, col, shade, ln.hdb,
+                ln.absorb, ln.bounce * itg._SLOTS_PER_BOUNCE, ln.rid, seed, c.t_best,
+                c.sid_best, torch.isfinite(c.t_best), packed_rows=packed_rows,
+                photon_grid=photon_grid)
+            # adopt the estimator's updates on shade lanes only: elsewhere
+            # (o_n, d_n) is the ray in flight, and the throughput update is
+            # only meaningful where a hit was shaded
+            sh3 = shade[:, None]
+            ln.o = torch.where(sh3, o_n, ln.o)
+            ln.d = torch.where(sh3, d_n, ln.d)
+            ln.tp = torch.where(sh3, tp_n, ln.tp)
+            ln.absorb = torch.where(sh3, absorb_n, ln.absorb)
+            ln.hdb = torch.where(shade, hdb_n, ln.hdb)
+            ln.bounce = ln.bounce + shade
+            cont_shade = alive_n & (ln.bounce < settings.max_bounces)
 
-                if req is not None:
-                    pend = shade & req["need"]
-                    to_l = req["p_to"] - req["p_from"]
-                    dir_len = vm.length(to_l)
-                    d_sh = to_l / torch.clamp(dir_len, min=1e-30)[..., None]
-                    o_sh = req["p_from"] + d_sh * eps
-                    pend_contrib = torch.where(pend[:, None], req["contrib"], pend_contrib)
-                    pend_dist = torch.where(pend, dir_len, pend_dist)
-                    pend_lsid = torch.where(pend, req["light_sid"], pend_lsid)
-                else:
-                    pend = torch.zeros_like(shade)
-                    o_sh, d_sh = tr_o, tr_d
-                cont_prev = pend_cont
-                pend_cont = torch.where(shade, cont_shade, pend_cont)
+            if req is not None:
+                pend = shade & req["need"]
+                to_l = req["p_to"] - req["p_from"]
+                dir_len = vm.length(to_l)
+                d_sh = to_l / torch.clamp(dir_len, min=1e-30)[..., None]
+                o_sh = req["p_from"] + d_sh * eps
+                c.pend_contrib = torch.where(pend[:, None], req["contrib"], c.pend_contrib)
+                c.pend_dist = torch.where(pend, dir_len, c.pend_dist)
+                c.pend_lsid = torch.where(pend, req["light_sid"], c.pend_lsid)
+            else:
+                pend = torch.zeros_like(shade)
+                o_sh, d_sh = tr_o, tr_d
+            cont_prev = c.pend_cont
+            c.pend_cont = torch.where(shade, cont_shade, c.pend_cont)
+        return None, rg.Finalize(resolve, shade, pend, cont_prev, cont_shade, o_sh, d_sh)
 
-            with span("regen"):
-                rgk.fused_regen(q, ln, fin=rg.Finalize(resolve, shade, pend, cont_prev,
-                                                       cont_shade, o_sh, d_sh))
-        it += 1
-    return _ret(it)
+    return itg._run_queue(step, scene, settings, camera, pix_queue, width, height, seed,
+                          n_lanes, rid_base, return_iters, iters_out, init=init)

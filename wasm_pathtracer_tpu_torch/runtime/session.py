@@ -27,6 +27,8 @@ session renders what one rank would with a batch n times as large.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -108,17 +110,14 @@ class RenderInstance:
         # (the per-pixel route keys a path by its pixel, as in JAX)
         rid_base = 0x40000000 if self.x0 > 0 or self.y0 > 0 else 0
         use_flat = s.prep.cluster is not None and st.use_flat_wavefront is not False
-        if s.mesh is None:
-            queue_fn = wavefront.render_queue_flat if use_flat else integrator.render_queue
-        else:
+        queue_fn = wavefront.render_queue_flat if use_flat else integrator.render_queue
+        if s.mesh is not None:
             if not use_regen:
                 raise ValueError("a session over a mesh renders through the "
                                  "regenerating queue (use_regen and early_exit on)")
-            sharded = (shard.render_queue_flat_sharded if use_flat
-                       else shard.render_queue_sharded)
-
-            def queue_fn(*args, **kw):
-                return sharded(s.mesh, *args, exact_lanes=True, **kw)
+            queue_fn = functools.partial(
+                shard.render_queue_flat_sharded if use_flat else shard.render_queue_sharded,
+                s.mesh, exact_lanes=True)
         traced = 0
         costs = []
         last_density = None
