@@ -224,7 +224,9 @@ its last line):
     ``_shade_core`` bit for bit (every lane of every output, NaN equal
     to NaN), then both timed as the kernels above, first on the
     arguments of the shade kernel's call ``HEADLINE_CALL`` in the main
-    path's run (16,384 lanes, recorded by ``headline_inputs``), then on
+    path's run (16,384 lanes, recorded by ``headline_inputs`` with the
+    loop run op by op, ``eager_queue``: a CUDA-graph replay makes no
+    Python call), then on
     those of the sixth call of each half of a 512x512 museum session
     (the left half's uniform NEE, then the right half's PNEE after its
     300,000 photons; 8,192 lanes) and the same lanes four times over
@@ -774,6 +776,30 @@ def recorded_calls(module, which):
             setattr(module, name, fn)
 
 
+@contextlib.contextmanager
+def eager_queue():
+    """Within the block the queue loops launch every iteration op by op,
+    with no CUDA graph, so that a wrapper's spy sees each iteration's
+    call: a replay launches without one."""
+    from wasm_pathtracer_tpu_torch.ops import integrator
+    from wasm_pathtracer_tpu_torch.ops import regen_kernels as rgk
+    real = integrator._loop
+
+    def loop(step, q, ln, c, light_tab, packed_rows, graph):
+        it = 0
+        while bool(ln.alive.any()):
+            was, fin = step(q, ln, c, light_tab, packed_rows)
+            rgk.fused_regen(q, ln, was=was, fin=fin)
+            it += 1
+        return it
+
+    integrator._loop = loop
+    try:
+        yield
+    finally:
+        integrator._loop = real
+
+
 @functools.cache
 def headline_inputs(device):
     """{wrapper name: its arguments} of call ``HEADLINE_CALL`` of K1, of
@@ -791,7 +817,7 @@ def headline_inputs(device):
     prep = trace.prepare(scene)
     st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=h["max_bounces"])
     which = {"fused_nearest": HEADLINE_CALL, "fused_occluded": HEADLINE_CALL}
-    with recorded_calls(sk, which) as got, \
+    with eager_queue(), recorded_calls(sk, which) as got, \
             recorded_calls(shk, {"fused_shade": HEADLINE_CALL}) as got_shade:
         integrator.render_queue(prep, scene, st, initial_camera(0, device),
                                 headline_queue(device, h["S"]), h["width"], h["height"],
@@ -1387,7 +1413,7 @@ def flat_inputs(device):
     h = MESH
     scene, prep = mesh70k(device)
     st = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=h["max_bounces"])
-    with recorded_calls(pk, {"probe_pair": FLAT_CALL}) as got:
+    with eager_queue(), recorded_calls(pk, {"probe_pair": FLAT_CALL}) as got:
         wavefront.render_queue_flat(prep, scene, st, mesh_camera(device),
                                     headline_queue(device, h["S"]), h["width"],
                                     h["height"], 4, h["B"])
@@ -3258,8 +3284,9 @@ def shade_inputs(device):
 
     integrator._shade_core = recording
     try:
-        while len(got) < 2:
-            sess.compute(65_536)
+        with eager_queue():
+            while len(got) < 2:
+                sess.compute(65_536)
     finally:
         integrator._shade_core = real
     return got
@@ -3376,7 +3403,8 @@ def regen_inputs(device, route, lanes):
     recording.launches = real.launches
     rgk.fused_regen = recording
     try:
-        fn(prep, scene, st, cam, headline_queue(device, 8 * lanes), 512, 512, 6, lanes)
+        with eager_queue():
+            fn(prep, scene, st, cam, headline_queue(device, 8 * lanes), 512, 512, 6, lanes)
     finally:
         real.launches = recording.launches
         rgk.fused_regen = real

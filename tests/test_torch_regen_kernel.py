@@ -2,9 +2,10 @@
 against the eager ``regen.regen``, on the card (marked ``gpu``; skipped
 without one).
 
-Inside real queue loops, the museum through ``render_queue`` and
-cloud100k through ``render_queue_flat``, at 1,024, 8,192, 10,000 and
-16,384 lanes, every regeneration runs both ways on the same registers:
+Inside real queue loops, run op by op (no CUDA graph), the museum
+through ``render_queue`` and cloud100k through ``render_queue_flat``, at
+1,024, 8,192, 10,000 and 16,384 lanes, every regeneration runs both ways
+on the same registers:
 the eager code's result carries the loop on, and the kernel's, from
 copies, must equal it bit for bit in every register (claims, the claim
 cursor, ``k_lane``, pixel and ray ids, bounces, the new rays, and on the
@@ -30,6 +31,8 @@ from wasm_pathtracer_tpu_torch.config import RenderSettings, RenderType
 from wasm_pathtracer_tpu_torch.ops import integrator, wavefront
 from wasm_pathtracer_tpu_torch.ops import regen as rg
 from wasm_pathtracer_tpu_torch.ops import regen_kernels as rgk
+
+from tests.torch_port_helpers import eager_queue_loop
 
 KERNEL = rgk.fused_regen
 NEE = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=8)
@@ -96,6 +99,7 @@ def test_kernel_matches_eager_register_by_register(monkeypatch, scene_id, lanes)
     sess = _session(scene_id)
     check = RegenCheck()
     monkeypatch.setattr(rgk, "fused_regen", check)
+    monkeypatch.setattr(integrator, "_loop", eager_queue_loop)
     g = torch.Generator().manual_seed(lanes + scene_id)
     pix = torch.randint(0, SIZE * SIZE, (3 * lanes,), generator=g).to(dev)
     _queue_fn(scene_id)(sess.prep, sess.scene, NEE, sess.camera, pix, SIZE, SIZE,

@@ -7,8 +7,8 @@ records whether it was called, and gradients through ``trace_paths`` stay
 bit-identical); the benchmark's ``queue.shade_launch_share`` reads hand-
 built profiles.
 
-On the card (marked ``gpu``): inside real sessions every ``_shade_core``
-call is run both ways on the same inputs and compared lane by lane (the
+On the card (marked ``gpu``): inside real sessions, their queue loops
+run op by op (no CUDA graph), every ``_shade_core`` call is run both ways on the same inputs and compared lane by lane (the
 museum with uniform NEE and PNEE, scene 100, the textured Whitted scene
 101 with its mirror and refractive spheres, cloud100k's flat wavefront,
 the per-pixel route and the light-selection debug render); masks, light
@@ -31,6 +31,8 @@ from wasm_pathtracer_tpu_torch.models import scenes
 from wasm_pathtracer_tpu_torch.models.camera import Camera, initial_camera
 from wasm_pathtracer_tpu_torch.ops import integrator, trace
 from wasm_pathtracer_tpu_torch.ops import shade_kernels as shk
+
+from tests.torch_port_helpers import eager_queue_loop
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 NEE = RenderSettings(render_type=RenderType.NORMAL_NEE, max_bounces=3)
@@ -241,6 +243,7 @@ def test_kernel_matches_eager_lane_by_lane(monkeypatch, case):
                    device=dev)
     check = ShadeCheck()
     monkeypatch.setattr(integrator, "_shade_core", check)
+    monkeypatch.setattr(integrator, "_loop", eager_queue_loop)
     for _ in range(3):
         sess.compute(2 * 4096)
     torch.cuda.synchronize()
@@ -250,9 +253,12 @@ def test_kernel_matches_eager_lane_by_lane(monkeypatch, case):
 
 
 def _eager_and_kernel(monkeypatch, fn):
-    """``fn()`` through the eager code, then through the kernel."""
+    """``fn()`` through the eager code, its queue loop op by op (a host
+    copy of the eager shading cannot be captured), then through the
+    kernel."""
     with monkeypatch.context() as m:
         m.setattr(shk, "takes_kernel", lambda *a: False)
+        m.setattr(integrator, "_loop", eager_queue_loop)
         before = shk.fused_shade.launches
         ref = fn()
         assert shk.fused_shade.launches == before

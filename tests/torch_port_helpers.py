@@ -27,3 +27,17 @@ def tensors_of(x):
     if isinstance(x, (tuple, list)):
         return [t for v in x for t in tensors_of(v)]
     return []
+
+
+def eager_queue_loop(step, q, ln, c, light_tab, packed_rows, graph=False):
+    """In place of ``integrator._loop``: every queue iteration op by op,
+    never a CUDA graph, for tests that look inside iterations (a spy that
+    reads the device cannot run inside a capture, and a replay calls no
+    Python)."""
+    from wasm_pathtracer_tpu_torch.ops import regen_kernels as rgk
+    it = 0
+    while bool(ln.alive.any()):
+        was, fin = step(q, ln, c, light_tab, packed_rows)
+        rgk.fused_regen(q, ln, was=was, fin=fin)
+        it += 1
+    return it

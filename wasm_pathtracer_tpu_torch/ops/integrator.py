@@ -20,7 +20,8 @@ the card a bounce's shading, :func:`_shade_core`, is one launch of the
 shade kernel (``ops.shade_kernels``) unless something needs a gradient;
 its eager ops, :func:`_shade_eager`, are the autograd and CPU form.  The
 queue's regeneration is ``ops.regen``, one launch of the regen kernel
-(``ops.regen_kernels``) on the card.
+(``ops.regen_kernels``) on the card, and there every queue iteration
+after the first is one replay of a CUDA graph (``ops.queue_graph``).
 
 :func:`trace_paths` and :func:`render_pixels` are differentiable in the
 scene's material leaves, its shape table (light rows) and the camera.
@@ -37,6 +38,7 @@ shadow-boundary warp of ``ops.edges``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -49,6 +51,7 @@ from wasm_pathtracer_tpu_torch.models.scene import (
     SceneData,
 )
 from wasm_pathtracer_tpu_torch.ops import intersect as isx
+from wasm_pathtracer_tpu_torch.ops import queue_graph
 from wasm_pathtracer_tpu_torch.ops import regen as rg
 from wasm_pathtracer_tpu_torch.ops import regen_kernels as rgk
 from wasm_pathtracer_tpu_torch.ops import shade_kernels as shk
@@ -486,7 +489,8 @@ def render_queue(prep, scene, settings: RenderSettings, camera: Camera,
         return was, None
 
     return _run_queue(step, scene, settings, camera, pix_queue, width, height, seed,
-                      n_lanes, rid_base, return_iters, iters_out)
+                      n_lanes, rid_base, return_iters, iters_out,
+                      polls=tr.polls_host(prep))
 
 
 @dataclasses.dataclass
@@ -508,7 +512,7 @@ class _Carry:
 
 def _run_queue(step, scene, settings: RenderSettings, camera: Camera, pix_queue,
                width: int, height: int, seed, n_lanes: int, rid_base, return_iters,
-               iters_out, init=None):
+               iters_out, init=None, polls=False):
     """The regenerating queue loop of both routes, :func:`render_queue`
     and ``wavefront.render_queue_flat``, with their arguments and returns.
 
@@ -518,9 +522,8 @@ def _run_queue(step, scene, settings: RenderSettings, camera: Camera, pix_queue,
     ``(was, fin)``; ``init(ln, c)`` adds the route's own registers before
     the first iteration.  Every carry of the loop lives on ``ln`` or
     ``c`` and the queue ``q`` is never rebound, so an iteration reads and
-    writes those three only: a CUDA graph of one iteration goes here.
-    The loop condition reads ``alive.any()`` on the host once per
-    iteration; nothing else in the loop waits for the device.
+    writes those three only.  ``polls`` says that the step itself reads
+    the device from the host (``trace.polls_host``).
     """
     if settings.edge_aware_nee:
         raise NotImplementedError("edge-aware NEE is a gradient switch: "
@@ -546,19 +549,45 @@ def _run_queue(step, scene, settings: RenderSettings, camera: Camera, pix_queue,
         c = _Carry(cost)
         if init is not None:
             init(ln, c)
-        while True:
-            with span("sync.queue_alive"):
-                if not bool(ln.alive.any()):
-                    break
-            with span("queue.iter"):
-                was, fin = step(q, ln, c, light_tab, packed_rows)
-                with span("regen"):
-                    rgk.fused_regen(q, ln, was=was, fin=fin)
-            it += 1
+        it = _loop(step, q, ln, c, light_tab, packed_rows, ln.o.is_cuda and not polls)
     if iters_out is not None:
         iters_out.append(it)
     out = (acc[:HW], cnt[:HW], cost)
     return out + (it,) if return_iters else out
+
+
+def _iteration(step, q, ln, c, light_tab, packed_rows):
+    was, fin = step(q, ln, c, light_tab, packed_rows)
+    with span("regen"):
+        rgk.fused_regen(q, ln, was=was, fin=fin)
+
+
+def _loop(step, q, ln, c, light_tab, packed_rows, graph: bool) -> int:
+    """Iterate until no lane is alive; returns the number of iterations.
+
+    The loop condition reads ``alive.any()`` on the host once per
+    iteration; nothing else in the loop waits for the device.  With
+    ``graph`` (lanes on the card, a step that makes no host read) the
+    first iteration runs op by op, and when a second is due one iteration
+    is captured (``queue_graph``) and every iteration from the second on
+    is one replay of it.
+    """
+    iteration = functools.partial(_iteration, step, q, ln, c, light_tab, packed_rows)
+    it, replay = 0, None
+    while True:
+        with span("sync.queue_alive"):
+            if not bool(ln.alive.any()):
+                return it
+        if graph and it and replay is None:
+            with span("queue.capture"):
+                replay = queue_graph.capture(iteration, (ln, c))
+        with span("queue.iter"):
+            if replay is None:
+                iteration()
+            else:
+                with span("queue.replay"):
+                    replay()
+        it += 1
 
 
 def trace_depth(prep, scene, o, d):

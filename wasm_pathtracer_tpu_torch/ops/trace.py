@@ -169,6 +169,13 @@ def trace_scene(prep: ScenePrep, scene: SceneData, o, d):
     return winner_t(prep, scene, o, d, t, sid), sid, hit, cost
 
 
+def polls_host(prep: ScenePrep) -> bool:
+    """Whether :func:`trace_scene` on ``prep`` may read the device from
+    the host: the cluster trace polls its lockstep rounds and the BVH
+    walk its stacks."""
+    return prep.cluster is not None or (prep.has_bvh and not prep.use_pallas)
+
+
 def _trace_discrete(prep: ScenePrep, scene: SceneData, o, d):
     """:func:`trace_scene` without the re-evaluation."""
     t, sid, hit, cost = scene_kernels.trace_scene_fused(prep, scene, o, d)

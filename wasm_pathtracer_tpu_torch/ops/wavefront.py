@@ -180,4 +180,5 @@ def render_queue_flat(prep: tr.ScenePrep, scene, settings: RenderSettings,
         return None, rg.Finalize(resolve, shade, pend, cont_prev, cont_shade, o_sh, d_sh)
 
     return itg._run_queue(step, scene, settings, camera, pix_queue, width, height, seed,
-                          n_lanes, rid_base, return_iters, iters_out, init=init)
+                          n_lanes, rid_base, return_iters, iters_out, init=init,
+                          polls=not fused_scan and n_dense > 0 and tr.polls_host(prep_dense))
